@@ -1,0 +1,124 @@
+"""Convolution building blocks (counterpart of dvmvs_tpu/models/layers.py).
+
+NCHW ``nn.Module``s whose state-dict names are the original model's
+(``conv_layer`` is ``Sequential(Conv2d, BatchNorm2d, ReLU)``, so its keys are
+``<name>.0.weight`` and ``<name>.1.*``). Convolutions are bias-free and
+followed by BatchNorm + ReLU unless noted.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from dvmvs_tpu_torch.ops.sampling import resize_bilinear_align_corners
+
+# Flax keeps 0.9 of the running average per update; torch's momentum is the
+# complement.
+BN_MOMENTUM = 0.1
+BN_EPS = 1e-5
+
+
+class ConvBnRelu(nn.Sequential):
+    """conv_layer: Conv2d(k, stride, padding (k-1)//2, no bias) [+ BN + ReLU]."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int, stride: int = 1,
+                 apply_bn_relu: bool = True):
+        layers = [nn.Conv2d(in_channels, features, kernel_size, stride=stride,
+                            padding=(kernel_size - 1) // 2, bias=False)]
+        if apply_bn_relu:
+            layers += [nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM),
+                       nn.ReLU(inplace=True)]
+        super().__init__(*layers)
+
+
+class StandardLayer(nn.Module):
+    """Two same-channel convs."""
+
+    def __init__(self, channels: int, kernel_size: int, apply_bn_relu: bool = True):
+        super().__init__()
+        self.conv1 = ConvBnRelu(channels, channels, kernel_size, 1, True)
+        self.conv2 = ConvBnRelu(channels, channels, kernel_size, 1, apply_bn_relu)
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
+
+
+class DownconvolutionLayer(nn.Module):
+    def __init__(self, in_channels: int, features: int, kernel_size: int):
+        super().__init__()
+        self.down_conv = ConvBnRelu(in_channels, features, kernel_size, 2)
+
+    def forward(self, x):
+        return self.down_conv(x)
+
+
+class EncoderBlock(nn.Module):
+    """Stride-2 down conv + StandardLayer."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int):
+        super().__init__()
+        self.down_convolution = DownconvolutionLayer(in_channels, features, kernel_size)
+        self.standard_convolution = StandardLayer(features, kernel_size)
+
+    def forward(self, x):
+        return self.standard_convolution(self.down_convolution(x))
+
+
+class UpconvolutionLayer(nn.Module):
+    """Bilinear x2 (align_corners) + conv."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int):
+        super().__init__()
+        self.conv = ConvBnRelu(in_channels, features, kernel_size, 1)
+
+    def forward(self, x):
+        H, W = x.shape[-2:]
+        return self.conv(resize_bilinear_align_corners(x, 2 * H, 2 * W))
+
+
+class DecoderBlock(nn.Module):
+    """Upsample + skip (+ upsampled depth) aggregation."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int,
+                 apply_bn_relu: bool = True, plus_one: bool = True):
+        super().__init__()
+        self.up_convolution = UpconvolutionLayer(in_channels, features, kernel_size)
+        # the skip has ``features`` channels, so the concat has in_channels (+1)
+        self.convolution1 = ConvBnRelu(in_channels + int(plus_one), features, kernel_size)
+        self.convolution2 = ConvBnRelu(features, features, kernel_size, 1, apply_bn_relu)
+
+    def forward(self, x, skip, depth):
+        x = self.up_convolution(x)
+        if depth is None:
+            x = torch.cat([x, skip], dim=1)
+        else:
+            H, W = depth.shape[-2:]
+            depth = resize_bilinear_align_corners(depth, 2 * H, 2 * W)
+            x = torch.cat([x, skip, depth], dim=1)
+        return self.convolution2(self.convolution1(x))
+
+
+class DepthHead(nn.Sequential):
+    """3x3 conv (with bias) + sigmoid."""
+
+    def __init__(self, in_channels: int):
+        super().__init__(nn.Conv2d(in_channels, 1, 3, padding=1), nn.Sigmoid())
+
+
+@torch.no_grad()
+def init_parameters(module: nn.Module, generator: torch.Generator):
+    """Seeded initialisation: every conv gets PyTorch's default distribution
+    (uniform in +-1/sqrt(fan_in)) drawn from ``generator``; BatchNorm starts
+    at identity."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            bound = 1.0 / math.sqrt(fan_in)
+            m.weight.uniform_(-bound, bound, generator=generator)
+            if m.bias is not None:
+                m.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()

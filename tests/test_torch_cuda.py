@@ -1,0 +1,168 @@
+"""The port's CUDA kernel on the card, against its plain PyTorch version.
+
+These tests need an NVIDIA GPU and skip elsewhere. They import neither jax
+nor the test conftest, so on a machine with the card and without jax they
+run as ``python -m pytest --noconftest -q tests/test_torch_cuda.py``.
+Tolerance, absolute (coordinate fold and order of summation): 5e-4 for the
+dot cost, the JAX kernel tests' own; 2e-3 for the L1 cost, which sums over
+the channels where the dot cost averages (measured 7.7e-4 at C=32).
+"""
+
+import numpy as np
+import pytest
+import torch
+from scipy.spatial.transform import Rotation
+
+from dvmvs_tpu import config
+from dvmvs_tpu_torch.ops import plane_sweep as tps
+from dvmvs_tpu_torch.ops.cost_volume import inverse_depth_planes
+
+pytestmark = pytest.mark.cuda
+
+B, V, H, W, P = 1, 2, 128, 160, 64  # the online path's shape at 320x256
+ATOL = {True: 5e-4, False: 2e-3}  # by dot_product
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _pose(euler_deg, t):
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = Rotation.from_euler("xyz", euler_deg, degrees=True).as_matrix()
+    pose[:3, 3] = t
+    return pose
+
+
+def _case(seed, euler, t, c, device, h=H, w=W):
+    rs = np.random.RandomState(seed)
+    ref = torch.from_numpy(rs.randn(B, h, w, c).astype(np.float32)).to(device)
+    meas = torch.from_numpy(rs.randn(B, V, h, w, c).astype(np.float32)).to(device)
+    K = np.array([[0.75 * w, 0, w / 2], [0, 0.75 * w, h / 2], [0, 0, 1]], np.float32)
+    poses = np.stack([_pose(euler, t), _pose([1, 2, 0.5], [0.1, 0.02, 0.0])])
+    mats = tps.build_plane_matrices(
+        torch.eye(4, device=device), torch.from_numpy(poses).to(device),
+        torch.from_numpy(K).to(device), inverse_depth_planes(0.25, 20.0, P, device))
+    return ref, meas, mats[None].contiguous()
+
+
+@pytest.mark.parametrize("euler,t,c,weights,dot_product", [
+    ([0, 0, 0], [0.12, 0.0, 0.0], 32, [0.5, 0.5], True),      # lateral
+    ([2, 3, 1], [0.12, 0.03, 0.02], 32, [0.5, 0.5], True),    # typical
+    ([0, 0, 4], [0.05, 0.0, 0.1], 32, [0.5, 0.5], True),      # roll + forward
+    ([0, 0, 35], [0.1, 0.0, 0.0], 32, [0.5, 0.5], True),      # extreme roll
+    ([0, 120, 0], [0.1, 0.0, 2.0], 32, [0.5, 0.5], True),     # behind the camera
+    ([2, 3, 1], [0.12, 0.03, 0.02], 32, [1.0, 0.0], True),    # masked view
+    ([2, 3, 1], [0.12, 0.03, 0.02], 30, [0.5, 0.5], True),    # C = 30
+    ([2, 3, 1], [0.12, 0.03, 0.02], 32, [0.5, 0.5], False),   # L1
+    ([0, 120, 0], [0.1, 0.0, 2.0], 30, [1.0, 0.0], False),    # L1, C=30, masked
+])
+def test_kernel_matches_plain(cuda_device, euler, t, c, weights, dot_product):
+    ref, meas, mats = _case(0, euler, t, c, cuda_device)
+    w = torch.tensor([weights], dtype=torch.float32, device=cuda_device)
+    want = tps.plane_sweep_multiview_plain(ref, meas, mats, w, dot_product)
+    before = tps.launch_count
+    got = tps.plane_sweep_multiview(ref, meas, mats, w, dot_product)
+    torch.cuda.synchronize()
+    assert tps.launch_count == before + 1
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= ATOL[dot_product]
+
+
+def test_kernel_at_640x480_frames(cuda_device):
+    """Half-resolution features of 640x480 frames: the size the TPU kernels,
+    which keep whole measurement maps in VMEM, never covered."""
+    ref, meas, mats = _case(2, [2, 3, 1], [0.12, 0.03, 0.02], 32, cuda_device, 240, 320)
+    w = torch.full((1, V), 0.5, device=cuda_device)
+    want = tps.plane_sweep_multiview_plain(ref, meas, mats, w)
+    got = tps.plane_sweep_multiview(ref, meas, mats, w)
+    torch.cuda.synchronize()
+    assert got.shape == (1, P, 240, 320)
+    assert (got - want).abs().max().item() <= ATOL[True]
+
+
+def test_kernel_takes_views_at_unaligned_offsets(cuda_device):
+    """Contiguous views that start one float into their storage cannot use
+    16-byte loads; the kernel must fall back to scalar loads."""
+    ref, meas, mats = _case(1, [2, 3, 1], [0.12, 0.03, 0.02], 32, cuda_device)
+    w = torch.full((1, V), 0.5, device=cuda_device)
+    shifted = []
+    for t in (ref, meas):
+        buf = torch.empty(t.numel() + 1, device=cuda_device)
+        buf[1:] = t.reshape(-1)
+        shifted.append(buf[1:].view(t.shape))
+    assert shifted[0].is_contiguous() and shifted[0].data_ptr() % 16 != 0
+    want = tps.plane_sweep_multiview(ref, meas, mats, w)
+    got = tps.plane_sweep_multiview(shifted[0], shifted[1], mats, w)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_kernel_rejects_cpu_mix(cuda_device):
+    ref, meas, mats = _case(0, [0, 0, 0], [0.1, 0, 0], 32, cuda_device)
+    with pytest.raises(ValueError):
+        tps.plane_sweep_multiview(ref, meas, mats, torch.full((1, V), 0.5))
+
+
+@pytest.mark.parametrize("kind", ["fusionnet", "pairnet"])
+def test_engine_streams_through_kernel(cuda_device, kind):
+    """A short stream on the card launches the kernel once per keyframe and
+    gives the CPU engine's depths (same seeded weights, TF32 off)."""
+    from dvmvs_tpu_torch.apps.engine import InferenceEngine
+    from dvmvs_tpu_torch.apps.run_testing_online import predict_stream
+
+    cfg = config.TestConfig(image_width=96, image_height=64,
+                            depth=config.DepthConfig(0.25, 20.0, 16))
+    rs = np.random.RandomState(3)
+    frames = [rs.randn(64, 96, 3).astype(np.float32) for _ in range(6)]
+    poses = []
+    for i in range(6):
+        pose = np.eye(4)
+        pose[0, 3] = 0.12 * i
+        poses.append(pose)
+    K = np.array([[70.0, 0, 48], [0, 70.0, 32], [0, 0, 1]], np.float32)
+    engine = InferenceEngine(kind, cfg, device=cuda_device, seed=4)
+    before = tps.launch_count
+    predictions, indices = predict_stream(engine, frames, poses, K, cfg)
+    assert indices == [1, 2, 3, 4, 5]
+    assert tps.launch_count - before == len(predictions)
+    want, _ = predict_stream(InferenceEngine(kind, cfg, seed=4), frames, poses, K, cfg)
+    for p, w in zip(predictions, want):
+        assert p.shape == (64, 96) and np.isfinite(p).all()
+        assert (p >= 0.25 - 1e-5).all() and (p <= 20.0 + 1e-5).all()
+        np.testing.assert_allclose(p, w, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["fusionnet", "pairnet"])
+def test_engine_step_queues_without_host_sync(cuda_device, kind):
+    """Everything up to the depth readback (uploads, features, splat, cost
+    volume, network) is queued without a host synchronisation."""
+    from dvmvs_tpu_torch.apps.engine import InferenceEngine
+
+    cfg = config.TestConfig(image_width=96, image_height=64,
+                            depth=config.DepthConfig(0.25, 20.0, 16))
+    engine = InferenceEngine(kind, cfg, device=cuda_device)
+    rs = np.random.RandomState(5)
+    frames = [rs.randn(64, 96, 3).astype(np.float32) for _ in range(3)]
+    poses = [np.eye(4) for _ in range(3)]
+    for i, pose in enumerate(poses):
+        pose[0, 3] = 0.12 * i
+    K = np.array([[70.0, 0, 48], [0, 70.0, 32], [0, 0, 1]], np.float32)
+    f0 = engine.encode(frames[0])[0]
+    engine.encode_and_predict(frames[1], [f0], poses[1], [poses[0]], K)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            image = engine._image(frames[2])
+            depth = engine._predict(image, engine.model.extract_features(image), [f0],
+                                    poses[2], [poses[0]], K)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert depth.shape == (1, 64, 96) and torch.isfinite(depth).all()

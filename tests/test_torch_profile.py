@@ -1,0 +1,57 @@
+"""The step profiler's trace arithmetic (dvmvs_tpu_torch/apps/profile_step.py)
+on hand-made chrome-trace events; the profile itself needs a GPU."""
+
+import pytest
+
+from dvmvs_tpu_torch.apps.profile_step import WINDOW, summarize_trace, union_length
+
+
+@pytest.mark.parametrize("intervals,want", [
+    ([], 0.0),
+    ([(0, 2), (5, 6)], 3.0),          # disjoint
+    ([(0, 4), (1, 2), (3, 6)], 6.0),  # contained and overlapping
+    ([(3, 6), (0, 4)], 6.0),          # unsorted
+])
+def test_union_length(intervals, want):
+    assert union_length(intervals) == want
+
+
+def _span(cat, name, ts, dur, correlation=None):
+    event = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "args": {}}
+    if correlation is not None:
+        event["args"]["correlation"] = correlation
+    return event
+
+
+def test_summarize_trace_attributes_kernels_to_modules():
+    events = [
+        _span("user_annotation", WINDOW, 0, 100),
+        _span("gpu_user_annotation", WINDOW, 10, 60),  # the device twin is not the window
+        _span("user_annotation", "module:encoder", 0, 20),
+        _span("user_annotation", "module:decoder", 40, 20),
+        _span("cuda_runtime", "cudaLaunchKernel", 5, 1, correlation=1),
+        _span("cuda_runtime", "cudaLaunchKernel", 30, 1, correlation=2),
+        _span("cuda_runtime", "cudaLaunchKernel", 45, 1, correlation=3),
+        _span("cuda_runtime", "cudaMemcpyAsync", 46, 1, correlation=4),
+        _span("kernel", "conv", 10, 20, correlation=1),
+        _span("kernel", "plane_sweep", 32, 8, correlation=2),
+        _span("kernel", "conv", 50, 10, correlation=3),
+        _span("gpu_memcpy", "Memcpy DtoH", 55, 10, correlation=4),
+        _span("kernel", "late", 120, 5, correlation=5),  # after the window
+    ]
+    got = summarize_trace(events, n_keyframes=2)
+    assert got["wall_ms"] == 0.1
+    assert got["device_busy_ms"] == pytest.approx(0.043)  # 10-30, 32-40, 50-65
+    assert got["device_idle_share"] == pytest.approx(0.57)
+    assert got["device_ops_per_keyframe"] == 2.0
+    assert got["device_ms_per_keyframe_by_module"] == pytest.approx(
+        {"encoder": 0.01, "decoder": 0.01, "other": 0.004})
+    assert got["device_ms_by_kernel"] == pytest.approx(
+        {"conv": 0.03, "plane_sweep": 0.008, "Memcpy DtoH": 0.01})
+
+
+def test_summarize_trace_refuses_a_trace_without_device_kernels():
+    events = [_span("user_annotation", WINDOW, 0, 100),
+              _span("cpu_op", "aten::conv2d", 10, 20)]
+    with pytest.raises(RuntimeError, match="no device kernels"):
+        summarize_trace(events, n_keyframes=1)
