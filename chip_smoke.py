@@ -2,24 +2,40 @@
 """Smoke run of the PyTorch/CUDA port (dvmvs_tpu_torch) on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
-hand-written plane-sweep kernel from ``dvmvs_tpu_torch/csrc``, holds it
-against its plain PyTorch version at the online path's shape, times both,
-then streams a synthetic 320x256 scene through the online fusionnet loop
-(``predict_stream`` -> keyframe buffer -> ``InferenceEngine``) with seeded
-random weights and checks the depths, the recurrent state, the kernel's
-launch count on that run, and agreement with the same engine on the CPU for
-the first keyframes. Each phase prints one line; any failure raises, so the
-exit code is non-zero. It imports neither jax nor OpenCV.
+hand-written kernels from ``dvmvs_tpu_torch/csrc`` (the plane sweep and its
+backward, one nvcc each, in parallel) and drives both paths of the port:
+
+  - online: the forward kernel against its plain PyTorch version at the
+    online path's shape and its timing, a synthetic 320x256 scene through the
+    online fusionnet loop (``predict_stream`` -> keyframe buffer ->
+    ``InferenceEngine``) with seeded random weights, and agreement with the
+    same engine on the CPU;
+  - training: the forward kernel with one view (K3/K4) and the backward
+    kernel (K5/K6) against the plain version and autograd through it at the
+    training shape, their timing, ``run_training.main`` on a synthetic
+    256x256 corpus (fusionnet B=4 S=8 through all three stages with
+    validation, then pairnet B=14, then one more fusionnet epoch resumed
+    from the first run's state), a short overfit, and one train step on the
+    card against the same step on the CPU.
+
+Each path runs with the launch counts set to 0 just before it and read just
+after. Each phase prints its lines; any failure raises, so the exit code is
+non-zero. It imports neither jax nor OpenCV.
 
 Output: phase lines, then the card's ``name, power.limit``, one JSON line
-with the kernel's measurements, and as the last line
+with the kernels' measurements, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
+import importlib.util
 import json
+import multiprocessing
+import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -33,6 +49,19 @@ N_FRAMES, N_MIN_KEYFRAMES, N_REF_KEYFRAMES = 40, 8, 3
 # card vs CPU depth, relative: the measured gap is 2.5e-7, and random weights
 # keep the depths in a narrow band, so the limit must be tight to catch a fault
 REF_RTOL = 1e-5
+
+# training shape: half-resolution features of the 256x256 training frames
+TB, TC, TH, TW = 4, 32, 128, 128
+GRAD_ATOL = 2e-4  # times max(|grad|, 1): tests/test_pallas_vjp.py's gradient limit
+TRAIN_STEPS, PAIR_STEPS = 3, 2  # optimizer steps per epoch (one epoch per stage)
+# corpus: (seed, frames) of the training and the validation scene; at 3 cm a
+# frame they crawl into 17 and 8 subsequences of 8 frames
+TRAIN_SCENE, VAL_SCENE = (100, 100), (101, 60)
+# card vs CPU train step (64x64, S=3, B=2, P=16), tests/test_torch_training.py's
+# limits: loss and BatchNorm statistics relative; gradients per tensor with
+# frozen BatchNorm, per module (relative L2) with train-mode BatchNorm, whose
+# float32 gradients are ill-conditioned at that size
+STEP_RTOL, FROZEN_GRAD_TOL, TRAIN_GRAD_L2 = 1e-4, 2e-3, 0.1
 
 
 def _pose(rx, ry, rz, t):
@@ -88,13 +117,186 @@ def time_ms(torch, fn, n_warmup=5, n=30):
     return float(np.median(times))
 
 
+def lap(state):
+    """Seconds since the previous lap (each phase prints its own time)."""
+    now = time.perf_counter()
+    dt, state[0] = now - state[0], now
+    return dt
+
+
+def train_case(torch, ps, seed, geometries, c, device):
+    """Training-shape single-view sweep inputs, one geometry per batch
+    element: ref (B,H,W,C), meas (B,1,H,W,C), mats (B,1,P,3,3), weights 1,
+    and a cotangent (B,P,H,W)."""
+    from dvmvs_tpu_torch.ops.cost_volume import inverse_depth_planes
+
+    rs = np.random.RandomState(seed)
+    b = len(geometries)
+    ref = torch.from_numpy(rs.randn(b, TH, TW, c).astype(np.float32)).to(device)
+    meas = torch.from_numpy(rs.randn(b, 1, TH, TW, c).astype(np.float32)).to(device)
+    g = torch.from_numpy(rs.randn(b, P, TH, TW).astype(np.float32)).to(device)
+    K = torch.tensor([[0.75 * TW, 0, TW / 2], [0, 0.75 * TW, TH / 2], [0, 0, 1]], device=device)
+    poses = torch.from_numpy(np.stack([_pose(*e, t) for e, t in geometries])).to(device)
+    mats = ps.build_plane_matrices(torch.eye(4, device=device), poses, K,
+                                   inverse_depth_planes(0.25, 20.0, P, device))
+    return ref, meas, mats[:, None].contiguous(), torch.ones((b, 1), device=device), g
+
+
+LATERAL, TYPICAL = ((0, 0, 0), (0.12, 0.0, 0.0)), ((2, 3, 1), (0.12, 0.03, 0.02))
+ROLL_35, YAW_120 = ((0, 0, 35), (0.1, 0.0, 0.0)), ((0, 120, 0), (0.1, 0.0, 2.0))
+# name -> (geometry of each of the TB batch elements, C)
+BWD_CASES = {
+    "lateral": ([LATERAL] * TB, TC),
+    "typical": ([TYPICAL] * TB, TC),
+    "extreme_roll_35": ([ROLL_35] * TB, TC),
+    "behind_camera_yaw_120": ([YAW_120] * TB, TC),
+    "c30": ([TYPICAL] * TB, 30),
+    "mixed_batch": ([LATERAL, TYPICAL, ROLL_35, YAW_120], TC),
+}
+
+
+def _load_synthetic():
+    """dvmvs_tpu/data/synthetic.py by path: its package imports OpenCV."""
+    spec = importlib.util.spec_from_file_location(
+        "synthetic_scene", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                        "dvmvs_tpu", "data", "synthetic.py"))
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    return synth
+
+
+def render_frames(seed, n_frames, first, last, size):
+    """Frames first..last-1 of SynthScene(seed)'s walk, (rgb uint8, depth)."""
+    synth = _load_synthetic()
+    scene = synth.SynthScene(seed)
+    poses = scene.trajectory(n_frames)
+    K = synth.default_K(size, size)
+    return [scene.render(poses[i], K, size, size) for i in range(first, last)]
+
+
+def write_corpus(root, size=256, workers=8):
+    """The training layout (per-frame npz with depth in mm, poses.txt, K.txt,
+    train.txt, validation.txt) of TRAIN_SCENE and VAL_SCENE, rendered at the
+    training size (no resize, so no OpenCV) by ``workers`` spawned
+    processes."""
+    synth = _load_synthetic()
+    jobs, names = [], []
+    for seed, n in (TRAIN_SCENE, VAL_SCENE):
+        step = -(-n // workers)
+        jobs += [(seed, n, i, min(i + step, n), size) for i in range(0, n, step)]
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        chunks = pool.starmap(render_frames, jobs)
+    frames = {}
+    for (seed, _, first, _, _), chunk in zip(jobs, chunks):
+        frames.setdefault(seed, []).extend(chunk)
+    for seed, n in (TRAIN_SCENE, VAL_SCENE):
+        name = f"scene_{seed}"
+        names.append(name)
+        scene_dir = os.path.join(root, name)
+        os.makedirs(scene_dir)
+        for i, (rgb, depth) in enumerate(frames[seed]):
+            np.savez(os.path.join(scene_dir, f"{i:05d}.npz"), image=rgb,
+                     depth=np.round(depth * 1000.0).astype(np.uint16))
+        np.savetxt(os.path.join(scene_dir, "poses.txt"),
+                   synth.SynthScene(seed).trajectory(n).reshape(n, 16))
+        np.savetxt(os.path.join(scene_dir, "K.txt"), synth.default_K(size, size))
+    for split, name in zip(("train", "validation"), names):
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write(name + "\n")
+
+
+def read_run(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    return ([e for e in lines if e["tag"] == "train"],
+            [e for e in lines if e["tag"] == "validation"])
+
+
+def check_run(torch, ps, run_dir, kind, n_stages, steps, s, peak_mib):
+    """Losses finite, checkpoint and resume pair written, both kernels
+    launched for every step; prints the [train] line."""
+    train, val = read_run(run_dir)
+    losses = [e["loss"] for e in train]
+    if len(losses) != n_stages * steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{kind}: losses {losses}")
+    state = os.path.join(run_dir, f"{kind}_latest.state.pt")
+    for path in (state, state + ".meta.json"):
+        if not os.path.isfile(path):
+            raise AssertionError(f"{kind}: {path} was not written")
+    # a checkpoint is written after an epoch whose validation improved (every
+    # epoch without validation); the first epoch always improves
+    checkpoints = sorted(f for f in os.listdir(run_dir) if f.startswith(f"{kind}_epoch"))
+    if f"{kind}_epoch0.pt" not in checkpoints:
+        raise AssertionError(f"{kind}: no checkpoint of the first epoch in {run_dir}")
+    fwd, bwd = ps.launch_count, ps.backward_launch_count
+    need = (s - 1) * n_stages * steps
+    if fwd < need or bwd < need:
+        raise AssertionError(f"{kind}: kernels launched {fwd}/{bwd} times, want >= {need} each")
+    step_ms = [e["step_ms"] for e in train]
+    val_text = ", ".join(f"{e['l1_inv']:.4f}" for e in val) or "off"
+    print(f"[train] {kind}: {n_stages} stages x {steps} steps, losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; step median {np.median(step_ms[1:]):.1f} ms "
+          f"(first {step_ms[0]:.1f} ms; all {', '.join(f'{v:.1f}' for v in step_ms)}); peak "
+          f"memory {peak_mib:.1f} MiB; kernel launches fwd {fwd} bwd {bwd} (>= {need}); "
+          f"validation l1_inv {val_text}; checkpoints {', '.join(checkpoints)} and the resume "
+          f"state written", flush=True)
+    return fwd, bwd, float(np.median(step_ms[1:]))
+
+
+def small_batch(torch, device, seed=0, s=3, b=2, size=64):
+    rs = np.random.RandomState(seed)
+    poses = np.stack([[_pose(*rs.uniform(-3, 3, 3), rs.uniform(-0.1, 0.1, 3))
+                       for _ in range(s)] for _ in range(b)])
+    K = np.array([[30.0, 0, size / 2], [0, 30.0, size / 2], [0, 0, 1]], np.float32)
+    batch = {"images": rs.randn(b, s, size, size, 3).astype(np.float32) * 0.5,
+             "depths": rs.uniform(0.5, 8.0, (b, s, size, size)).astype(np.float32),
+             "poses": poses.astype(np.float32), "K": np.stack([K] * b)}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def train_step_gaps(torch, cpu, card, freeze_bn):
+    """(largest gradient gap, largest statistics gap) of two models after
+    the same step. Gradients: per tensor against 1e-3 of the module's
+    largest |grad| with frozen BatchNorm, per module relative L2 in train
+    mode. Running statistics, per channel: a variance against itself; a
+    mean against what one batch could move it by, momentum *
+    sqrt(running_var), because a BatchNorm fed by a linear layer after
+    another BatchNorm sees a batch mean of zero up to rounding (about 1e-11
+    after one step)."""
+    grad_gap, stat_gap = 0.0, 0.0
+    for name in ("feature_extractor", "feature_shrinker", "cost_volume_encoder",
+                 "lstm_fusion", "cost_volume_decoder"):
+        want = dict(getattr(cpu, name).named_parameters())
+        got = dict(getattr(card, name).named_parameters())
+        pairs = [(got[k].grad.cpu(), want[k].grad) for k in want if want[k].grad is not None]
+        if freeze_bn:
+            floor = 1e-3 * max(w.abs().max().item() for _, w in pairs)
+            grad_gap = max(grad_gap, max((g - w).abs().max().item() / max(w.abs().max().item(),
+                                                                          floor)
+                                         for g, w in pairs))
+        else:
+            diff = sum(((g - w) ** 2).sum().item() for g, w in pairs) ** 0.5
+            grad_gap = max(grad_gap, diff / sum((w ** 2).sum().item() for _, w in pairs) ** 0.5)
+        card_modules = dict(getattr(card, name).named_modules())
+        for key, bn in getattr(cpu, name).named_modules():
+            if not isinstance(bn, torch.nn.BatchNorm2d):
+                continue
+            mean, var = bn.running_mean, bn.running_var
+            other = card_modules[key]
+            mean_scale = torch.maximum(mean.abs(), bn.momentum * var.sqrt())
+            stat_gap = max(stat_gap,
+                           ((other.running_mean.cpu() - mean).abs() / mean_scale).max().item(),
+                           ((other.running_var.cpu() - var).abs() / var).max().item())
+    return grad_gap, stat_gap
+
+
 def main():
     import torch
 
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
-    from dvmvs_tpu.config import TestConfig
+    from dvmvs_tpu.config import DepthConfig, TestConfig, TrainConfig
     from dvmvs_tpu_torch.apps.engine import InferenceEngine
     from dvmvs_tpu_torch.apps.profile_step import synthetic_stream
     from dvmvs_tpu_torch.apps.run_testing_online import predict_stream
@@ -112,13 +314,16 @@ def main():
           f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per source, all at once
     t0 = time.perf_counter()
-    log = ps.build_kernel()
-    regs = sorted({line.split("Used ")[1].split(",")[0] for line in log.splitlines()
-                   if "Used " in line})
-    print(f"[build] plane_sweep.cu built and loaded in {time.perf_counter() - t0:.2f} s "
-          f"(ptxas: {', '.join(regs) or 'cached'})", flush=True)
+    logs = ps.build_kernels()
+    regs = {name: sorted({line.split("Used ")[1].split(",")[0] for line in log.splitlines()
+                          if "Used " in line}) for name, log in logs.items()}
+    print(f"[build] {', '.join(f'{n}.cu' for n in logs)} built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s (ptxas: "
+          + "; ".join(f"{n}: {', '.join(r) or 'cached'}" for n, r in regs.items()) + ")",
+          flush=True)
+    clock = [time.perf_counter()]
 
     # 3. kernel vs plain version at the path's shape
     max_err = 0.0
@@ -130,7 +335,7 @@ def main():
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         print(f"[compare] {name}: max_abs_diff={err:.3e} (tol {TOL[dot]:g}), "
-              f"max |cost| {want.abs().max().item():.3f}", flush=True)
+              f"max |cost| {want.abs().max().item():.3f} ({lap(clock):.1f} s)", flush=True)
         if not (np.isfinite(err) and err <= TOL[dot]):
             raise AssertionError(f"kernel disagrees with the plain version on {name}: {err}")
         max_err = max(max_err, err)
@@ -141,8 +346,8 @@ def main():
     plain_ms = time_ms(torch, lambda: ps.plane_sweep_multiview_plain(ref, meas, mats, w))
     kernel_ms_2 = time_ms(torch, lambda: ps.plane_sweep_multiview(ref, meas, mats, w))
     print(f"[time] plane sweep (1,2,{C},{H},{W}) P={P}: kernel {kernel_ms:.4f} ms "
-          f"(again {kernel_ms_2:.4f}), plain {plain_ms:.4f} ms (median of 30, CUDA events)",
-          flush=True)
+          f"(again {kernel_ms_2:.4f}), plain {plain_ms:.4f} ms (median of 30, CUDA events; "
+          f"{lap(clock):.1f} s)", flush=True)
 
     # 5. main path: the fusionnet online loop at 320x256
     cfg = TestConfig()
@@ -154,10 +359,12 @@ def main():
     timer = InferenceTimer(n_skip=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ps.launch_count = 0
+    ps.launch_count = ps.backward_launch_count = 0
     predictions, indices = predict_stream(engine, frames, poses, K, cfg, timer=timer)
     torch.cuda.synchronize()
     launches = ps.launch_count
+    if ps.backward_launch_count:
+        raise AssertionError("the online path launched the backward kernel")
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     d = cfg.depth
     if len(predictions) < N_MIN_KEYFRAMES:
@@ -176,8 +383,8 @@ def main():
           f"{min(p.min() for p in predictions):.4f}..{max(p.max() for p in predictions):.4f} m, "
           f"has_prev=1, kernel launches {launches}, encode_and_predict median "
           f"{np.median(steady):.3f} ms p90 {np.percentile(steady, 90):.3f} ms over "
-          f"{len(steady)} (first {timer.times[0]:.1f} ms), peak memory {peak_mib:.1f} MiB",
-          flush=True)
+          f"{len(steady)} (first {timer.times[0]:.1f} ms), peak memory {peak_mib:.1f} MiB "
+          f"({lap(clock):.1f} s)", flush=True)
 
     # 6. the same stream's first keyframes on the CPU, same seeded weights
     cpu_engine = InferenceEngine("fusionnet", cfg, device="cpu", seed=0)
@@ -187,22 +394,164 @@ def main():
         raise AssertionError(f"keyframe schedule differs on the CPU: {ref_indices}")
     rel = max(float(np.max(np.abs(a - b) / b)) for a, b in zip(predictions, ref_preds))
     print(f"[reference] first {N_REF_KEYFRAMES} keyframes, card vs CPU plain path: max "
-          f"relative depth difference {rel:.3e} (tol {REF_RTOL:g})", flush=True)
+          f"relative depth difference {rel:.3e} (tol {REF_RTOL:g}; {lap(clock):.1f} s)",
+          flush=True)
     if not rel <= REF_RTOL:
         raise AssertionError("card and CPU depths disagree")
 
-    # 7. results
+    # 7. [bwd-compare] at the training shape: the forward kernel with V=1
+    # (K3/K4) and the backward kernel (K5/K6) against the plain version and
+    # autograd through it
+    bwd_err = 0.0
+    for name, (geometries, c) in BWD_CASES.items():
+        ref, meas, mats, w, g = train_case(torch, ps, 2, geometries, c, device)
+        fwd_err = (ps.plane_sweep_multiview(ref, meas, mats, w)
+                   - ps.plane_sweep_multiview_plain(ref, meas, mats, w)).abs().max().item()
+        want = ps.plane_sweep_backward_plain(ref, meas, mats, w, g)
+        got = ps.plane_sweep_backward(ref, meas, mats, w, g)
+        torch.cuda.synchronize()
+        line = [f"[bwd-compare] {name} (B={TB}, V=1, C={c}, {TH}x{TW}, P={P}): forward "
+                f"max_abs_diff {fwd_err:.3e} (tol {TOL[True]:g})"]
+        if not (np.isfinite(fwd_err) and fwd_err <= TOL[True]):
+            raise AssertionError(f"single-view forward disagrees on {name}: {fwd_err}")
+        for label, a, b in zip(("d_ref", "d_meas"), got, want):
+            err, scale = (a - b).abs().max().item(), b.abs().max().item()
+            line.append(f"{label} max_abs_diff {err:.3e} (max |grad| {scale:.3e}, limit "
+                        f"{GRAD_ATOL * max(scale, 1.0):.3e})")
+            if not (np.isfinite(err) and err <= GRAD_ATOL * max(scale, 1.0)):
+                raise AssertionError(f"backward kernel disagrees on {name} {label}: {err}")
+            bwd_err = max(bwd_err, err)
+        print("; ".join(line) + f" ({lap(clock):.1f} s)", flush=True)
+
+    # 8. [bwd-time]: forward + backward of the kernel pair against the plain
+    # version with autograd, then the backward alone
+    ref, meas, mats, w, g = train_case(torch, ps, 3, [TYPICAL] * TB, TC, device)
+    r, m = ref.clone().requires_grad_(), meas.clone().requires_grad_()
+
+    def pair(sweep):
+        return lambda: torch.autograd.grad(sweep(r, m, mats, w), (r, m), g)
+
+    pair_ms = time_ms(torch, pair(ps.plane_sweep_multiview))
+    plain_pair_ms = time_ms(torch, pair(ps.plane_sweep_multiview_plain))
+    pair_ms_2 = time_ms(torch, pair(ps.plane_sweep_multiview))
+    plain_out = ps.plane_sweep_multiview_plain(r, m, mats, w)
+    bwd_ms = time_ms(torch, lambda: ps.plane_sweep_backward(ref, meas, mats, w, g))
+    plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(plain_out, (r, m), g,
+                                                              retain_graph=True))
+    train_fwd_ms = time_ms(torch, lambda: ps.plane_sweep_multiview(ref, meas, mats, w))
+    del plain_out
+    print(f"[bwd-time] ({TB},1,{TC},{TH},{TW}) P={P}, typical geometry: forward+backward "
+          f"kernels {pair_ms:.4f} ms (again {pair_ms_2:.4f}), plain with autograd "
+          f"{plain_pair_ms:.4f} ms; backward alone: kernel {bwd_ms:.4f} ms, plain (autograd "
+          f"of a kept graph) {plain_bwd_ms:.4f} ms; forward kernel alone {train_fwd_ms:.4f} ms "
+          f"(median of 30, CUDA events; {lap(clock):.1f} s)", flush=True)
+
+    # 9. [train] the training path: run_training.main on a 256x256 corpus
+    from dvmvs_tpu_torch.apps import run_training
+    from dvmvs_tpu_torch.data.dataset import MVSSequenceDataset, batch_iterator
+    from dvmvs_tpu_torch.parallel import train as tt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus")
+        write_corpus(corpus)
+        print(f"[train] corpus: scenes {TRAIN_SCENE} and {VAL_SCENE} (seed, frames) rendered at "
+              f"256x256 ({lap(clock):.1f} s)", flush=True)
+        runs, run_dirs = {}, {}
+        for kind, s, extra, steps, n_stages in (
+                ("fusionnet", 8, ["--epochs", "3"], TRAIN_STEPS, 3),
+                ("pairnet", 2, ["--epochs", "2", "--finetune-epochs", "1", "--no-validate"],
+                 PAIR_STEPS, 2)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ps.launch_count = ps.backward_launch_count = 0
+            run_dirs[kind] = run_dir = run_training.main(
+                ["--model", kind, "--dataset", corpus, "--run-directory",
+                 os.path.join(tmp, "runs"), "--max-steps", str(steps), "--print-frequency", "1",
+                 "--device", "cuda", *extra])
+            torch.cuda.synchronize()
+            runs[kind] = check_run(torch, ps, run_dir, kind, n_stages, steps, s,
+                                   torch.cuda.max_memory_allocated() / 2 ** 20)
+            print(f"[train] {kind} run done ({lap(clock):.1f} s)", flush=True)
+
+        # --resume: one more epoch of the last stage from the fusionnet run's state
+        resumed = run_training.main(
+            ["--model", "fusionnet", "--dataset", corpus, "--run-directory",
+             os.path.join(tmp, "runs"), "--max-steps", "1", "--print-frequency", "1",
+             "--device", "cuda", "--epochs", "4", "--no-validate",
+             "--resume", os.path.join(run_dirs["fusionnet"], "fusionnet_latest.state.pt")])
+        with open(os.path.join(resumed, "fusionnet_latest.state.pt.meta.json")) as f:
+            meta = json.load(f)
+        resumed_losses = [e["loss"] for e in read_run(resumed)[0]]
+        if meta["epoch"] != 4 or meta["stage"] != 2 or len(resumed_losses) != 1 \
+                or not np.isfinite(resumed_losses).all():
+            raise AssertionError(f"resume: meta {meta}, losses {resumed_losses}")
+        print(f"[train] fusionnet resumed at epoch 3 (stage 2) from the run's state: loss "
+              f"{resumed_losses[0]:.4f}, resume state now at epoch {meta['epoch']} "
+              f"({lap(clock):.1f} s)", flush=True)
+
+        # 10. [overfit]: 5 Adam steps at lr 1e-3 on one fixed batch
+        cfg_train = TrainConfig()
+        data = MVSSequenceDataset(corpus, "TRAINING", 8, cfg_train, seed=0)
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in next(batch_iterator(data, 4, shuffle=False)).items()}
+        model = run_training.make_model("fusionnet", cfg_train, device, seed=0).train()
+        optimizer = tt.make_optimizer(model, tt.FUSIONNET_STAGES[2], 1e-3)
+        losses = [tt.train_step(model, optimizer, batch)["loss"].item() for _ in range(5)]
+        print(f"[overfit] fusionnet B=4 S=8 256x256, 5 Adam steps at lr 1e-3 on one batch: "
+              f"loss {' -> '.join(f'{v:.4f}' for v in losses)} ({lap(clock):.1f} s)", flush=True)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"the loss did not fall: {losses}")
+
+    # 11. [train-ref]: one train step on the card against the CPU, small size
+    cfg_small = TrainConfig(image_width=64, image_height=64,
+                                         depth=DepthConfig(0.25, 20.0, 16))
+    for freeze_bn in (False, True):
+        cpu = run_training.make_model("fusionnet", cfg_small, "cpu", seed=1).train(not freeze_bn)
+        card_model = copy.deepcopy(cpu).to(device)
+        step_losses = []
+        for model, dev in ((card_model, device), (cpu, "cpu")):
+            optimizer = tt.make_optimizer(model, tt.FUSIONNET_STAGES[2])
+            step_losses.append(tt.train_step(model, optimizer, small_batch(torch, dev))["loss"]
+                               .item())
+        loss_gap = abs(step_losses[0] - step_losses[1]) / abs(step_losses[1])
+        grad_gap, stat_gap = train_step_gaps(torch, cpu, card_model, freeze_bn)
+        grad_tol = FROZEN_GRAD_TOL if freeze_bn else TRAIN_GRAD_L2
+        print(f"[train-ref] fusionnet step 64x64 S=3 B=2 P=16, BatchNorm "
+              f"{'frozen' if freeze_bn else 'train'}: card vs CPU loss {step_losses[0]:.6f} vs "
+              f"{step_losses[1]:.6f} (relative gap {loss_gap:.3e}, tol {STEP_RTOL:g}); "
+              f"gradients {'per tensor' if freeze_bn else 'per module, relative L2'} "
+              f"{grad_gap:.3e} (tol {grad_tol:g}); statistics {stat_gap:.3e} (tol "
+              f"{STEP_RTOL:g}) ({lap(clock):.1f} s)", flush=True)
+        if not (loss_gap <= STEP_RTOL and grad_gap <= grad_tol and stat_gap <= STEP_RTOL):
+            raise AssertionError("the card's train step disagrees with the CPU's")
+
+    # 12. results
+    fwd_launches, bwd_launches = runs["fusionnet"][:2]
     print(card)
     print(json.dumps({"kernels": [{
         "name": "plane_sweep_multiview",
         "route": "cuda",
         "source": "dvmvs_tpu_torch/csrc/plane_sweep.cu",
         "replaces": "dvmvs_tpu/ops/pallas/cost_volume_kernel.py:274",
-        "also_replaces": "dvmvs_tpu/ops/pallas/cost_volume_kernel.py:408",
-        "launches": launches,
+        "also_replaces": ["dvmvs_tpu/ops/pallas/cost_volume_kernel.py:408",
+                          "dvmvs_tpu/ops/pallas/cost_volume_kernel.py:135",
+                          "dvmvs_tpu/ops/pallas/cost_volume_kernel.py:524"],
+        "note": "K3/K4 (single-view training forward) are this kernel with V=1, weight 1",
+        "launches": fwd_launches,
+        "launches_online": launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "plane_sweep_backward",
+        "route": "cuda",
+        "source": "dvmvs_tpu_torch/csrc/plane_sweep_bwd.cu",
+        "replaces": "dvmvs_tpu/ops/pallas/cost_volume_vjp.py:127",
+        "also_replaces": ["dvmvs_tpu/ops/pallas/cost_volume_vjp.py:251"],
+        "launches": bwd_launches,
+        "max_abs_err": bwd_err,
+        "ms": bwd_ms,
+        "plain_ms": plain_bwd_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

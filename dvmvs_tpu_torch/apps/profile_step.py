@@ -16,8 +16,17 @@ reports:
     launched it; "other" is the cost volume, the splat, the hidden-state
     warp and the uploads), and device time by kernel name.
 
+With ``--train`` it profiles the training step instead
+(``parallel/train.py::train_step``, every module trainable) at the
+reference's training shape (256x256; fusionnet B=4, S=8; pairnet B=14,
+S=2) on frames of the same room: the step's wall time, median and p90, peak
+device memory, and from one profiled step the device busy time, the device
+time by kernel name and the share of the plane-sweep forward and backward
+kernels.
+
 Run from the repo root: ``python -m dvmvs_tpu_torch.apps.profile_step
-[--model fusionnet] [--out FILE.json]``. TF32 is off, as in chip_smoke.py.
+[--model fusionnet] [--train] [--out FILE.json]``. TF32 is off, as in
+chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import collections
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import tempfile
 import time
@@ -41,24 +51,66 @@ MODULES = ("feature_extractor", "feature_shrinker", "cost_volume_encoder", "lstm
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 WINDOW = "profile_step.stream"
 N_FRAMES, N_WARMUP_PASSES, N_TIMED_PASSES, N_TOP_KERNELS = 40, 2, 3, 12
+N_WARMUP_STEPS, N_TIMED_STEPS = 2, 5
+# kernel-name prefixes of csrc/plane_sweep.cu and csrc/plane_sweep_bwd.cu
+SWEEP_KERNELS = {"forward": "plane_sweep_kernel", "backward": "plane_sweep_bwd_kernel"}
 
 
-def synthetic_stream(cfg: TestConfig, n_frames: int):
-    """(frames normalised for the network, camera-to-world poses, K float32)
-    of a walk through SynthScene(0), 5 cm a step. synthetic.py is loaded by
-    path: importing its package would import OpenCV."""
-    from dvmvs_tpu_torch.apps.run_testing_online import normalize_rgb
-
+def _synthetic():
+    """dvmvs_tpu/data/synthetic.py, loaded by path: importing its package
+    would import OpenCV."""
     spec = importlib.util.spec_from_file_location(
         "synthetic_scene", os.path.join(ROOT, "dvmvs_tpu", "data", "synthetic.py"))
     synth = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(synth)
+    return synth
+
+
+def synthetic_stream(cfg: TestConfig, n_frames: int):
+    """(frames normalised for the network, camera-to-world poses, K float32)
+    of a walk through SynthScene(0), 5 cm a step."""
+    from dvmvs_tpu_torch.apps.run_testing_online import normalize_rgb
+
+    synth = _synthetic()
     scene = synth.SynthScene(0)
     poses = scene.trajectory(n_frames, step=0.05)
     K = synth.default_K(cfg.image_width, cfg.image_height)
     frames = [normalize_rgb(scene.render(p, K, cfg.image_width, cfg.image_height)[0])
               for p in poses]
     return frames, poses, K.astype(np.float32)
+
+
+def synthetic_train_batch(size: int, batch_size: int, length: int) -> dict:
+    """A training batch from one walk through SynthScene(0), 3 cm a step:
+    element b holds frames b .. b+length-1 (images normalised, depth in m)."""
+    from dvmvs_tpu_torch.apps.run_testing_online import normalize_rgb
+
+    synth = _synthetic()
+    scene = synth.SynthScene(0)
+    poses = scene.trajectory(batch_size + length - 1).astype(np.float32)
+    K = synth.default_K(size, size).astype(np.float32)
+    rendered = [scene.render(p, K, size, size) for p in poses]
+    images = np.stack([normalize_rgb(rgb) for rgb, _ in rendered])
+    depths = np.stack([depth for _, depth in rendered])
+    idx = np.arange(batch_size)[:, None] + np.arange(length)[None]
+    return {"images": images[idx], "depths": depths[idx], "poses": poses[idx],
+            "K": np.stack([K] * batch_size)}
+
+
+def kernel_ms_by_prefix(events, prefixes: dict) -> dict:
+    """Device time (ms) of the kernels whose function name is each prefix,
+    template arguments and namespaces aside (CUPTI names them like
+    ``void (anonymous namespace)::plane_sweep_kernel<true, true>(...)``)."""
+    patterns = {key: re.compile(rf"(?<![\w]){re.escape(prefix)}[<(]")
+                for key, prefix in prefixes.items()}
+    totals = dict.fromkeys(prefixes, 0.0)
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        for key, pattern in patterns.items():
+            if pattern.search(e["name"]):
+                totals[key] += e["dur"] / 1e3
+    return totals
 
 
 def union_length(intervals) -> float:
@@ -165,14 +217,8 @@ def profile(model_kind: str) -> dict:
     finally:
         for h in handles:
             h.remove()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-
     times = np.asarray(timer.times)
-    trace = summarize_trace(events, len(predictions))
+    trace = summarize_trace(_trace_events(prof), len(predictions))
     unprofiled_ms = float(np.median(pass_ms))
     return {
         "model": model_kind,
@@ -186,16 +232,90 @@ def profile(model_kind: str) -> dict:
     }
 
 
+def _trace_events(prof) -> list:
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def profile_train(model_kind: str) -> dict:
+    """The training step at the reference's training shape (module doc)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from dvmvs_tpu.config import TrainConfig
+    from dvmvs_tpu_torch.apps.run_training import make_model
+    from dvmvs_tpu_torch.parallel.train import (FUSIONNET_STAGES, PAIRNET_STAGES,
+                                                make_optimizer, train_step)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TrainConfig()
+    fusion = model_kind == "fusionnet"
+    batch_size, length = (4, cfg.subsequence_length) if fusion else (14, 2)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             synthetic_train_batch(cfg.image_width, batch_size, length).items()}
+    model = make_model(model_kind, cfg, "cuda").train()
+    stages = FUSIONNET_STAGES if fusion else PAIRNET_STAGES
+    optimizer = make_optimizer(model, stages[-1], cfg.learning_rate)
+
+    def step():
+        return train_step(model, optimizer, batch, model_kind, cfg.loss_type)
+
+    for _ in range(N_WARMUP_STEPS):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(N_TIMED_STEPS):
+        t0 = time.perf_counter()
+        loss = step()["loss"].item()  # the readback ends the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function(WINDOW):
+            step()
+        torch.cuda.synchronize()
+    events = _trace_events(prof)
+    trace = summarize_trace(events, 1)
+    sweep = kernel_ms_by_prefix(events, SWEEP_KERNELS)
+    kernel_ms = sum(e["dur"] for e in events
+                    if e.get("ph") == "X" and e.get("cat") == "kernel") / 1e3
+    return {
+        "model": model_kind,
+        "batch": f"B={batch_size} S={length} at {cfg.image_width}x{cfg.image_height}",
+        "step_ms": {"median": float(np.median(step_ms)), "p90": float(np.percentile(step_ms, 90)),
+                    "n": len(step_ms), "all": step_ms},
+        "last_loss": loss,
+        "peak_memory_mib": peak_mib,
+        "profiled_step_wall_ms": trace["wall_ms"],
+        "device_busy_ms": trace["device_busy_ms"],
+        "device_idle_share": trace["device_idle_share"],
+        "device_ops": trace["device_ops_per_keyframe"],
+        "kernel_ms_total": kernel_ms,
+        "plane_sweep_kernel_ms": sweep,
+        "plane_sweep_share_of_kernel_time": sum(sweep.values()) / kernel_ms,
+        "device_ms_by_kernel": trace["device_ms_by_kernel"],
+    }
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", choices=["pairnet", "fusionnet"], default="fusionnet")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the training step instead of the online step")
     ap.add_argument("--out", default=None, help="also write the report to this JSON file")
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
-    report = {"card": card, **profile(args.model)}
+    run = profile_train if args.train else profile
+    report = {"card": card, **run(args.model)}
     text = json.dumps(report, indent=1)
     print(text)
     if args.out:

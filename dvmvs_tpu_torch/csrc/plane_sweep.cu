@@ -7,6 +7,12 @@
 //   K2 dvmvs_tpu/ops/pallas/cost_volume_kernel.py::pallas_plane_sweep_multiview_dyn
 //      (body _kernel_mv_dyn: runtime trip count over 8-row chunks, exact for
 //      any geometry)
+// Called with one view and weight 1 it is also the single-view training
+// forward, so it stands for two more TPU kernels of the same contract:
+//   K3 cost_volume_kernel.py::pallas_plane_sweep (banded)
+//   K4 cost_volume_kernel.py::pallas_plane_sweep_dyn (exact for any geometry)
+// Its dot mode is differentiable through ops/plane_sweep.py's autograd
+// Function, whose backward is csrc/plane_sweep_bwd.cu (K5/K6).
 // For every plane p and reference pixel (x, y):
 //   out[b, p, y, x] = sum_v w[b, v] * reduce_c(ref[b, y, x, c],
 //                                              bilinear(meas[b, v], M[b, v, p] [x, y, 1]))

@@ -13,13 +13,15 @@ from __future__ import annotations
 
 import torch.nn as nn
 
+from dvmvs_tpu_torch.models.layers import BatchNorm2d
+
 # torchvision's mnasnet keeps 0.9997 of the running average per update
 MNAS_BN_MOMENTUM = 3e-4
 BN_EPS = 1e-5
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=MNAS_BN_MOMENTUM)
+def _bn(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=MNAS_BN_MOMENTUM)
 
 
 class InvertedResidual(nn.Module):

@@ -9,8 +9,11 @@ Multi-view fusion is the masked mean over measurement views.
 ``plane_sweep_cost_volume`` is the gather reference built from poses, as
 the original model computes it. ``cost_volume_fused`` is the path the
 networks take: one call of the fused kernel wrapper
-(``ops/plane_sweep.py``) with no band ladder and no span check. Features
-are NCHW and the cost volume leaves as (B, P, H, W), planes as channels.
+(``ops/plane_sweep.py``) with no band ladder and no span check.
+``plane_sweep_cost_volume_train`` is the single-view training sweep, one
+call of ``plane_sweep_train`` (forward and backward kernels) in place of the
+JAX package's tier ladder. Features are NCHW and the cost volume leaves as
+(B, P, H, W), planes as channels.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from dvmvs_tpu_torch.ops.geometry import inverse_pose, make_warp_grid, matmul_f3
 from dvmvs_tpu_torch.ops.plane_sweep import (
     build_plane_matrices,
     plane_sweep_multiview,
+    plane_sweep_train,
     sweep_reduce,
 )
 
@@ -98,3 +102,17 @@ def cost_volume_fused(ref_feat, meas_feats, ref_pose, meas_poses, K,
     meas = meas_feats.to(torch.float32).permute(0, 1, 3, 4, 2).contiguous()
     return plane_sweep_multiview(ref, meas, mats.contiguous(), weights.contiguous(),
                                  dot_product)
+
+
+def plane_sweep_cost_volume_train(ref_feat, meas_feat, ref_pose, meas_pose, K,
+                                  min_depth: float, max_depth: float,
+                                  n_depth_levels: int) -> torch.Tensor:
+    """Differentiable single-view dot-product sweep for training: features
+    (B, C, H, W), poses camera-to-world (B, 4, 4), K (B, 3, 3) at feature
+    resolution -> (B, P, H, W). Gradients reach both feature maps; the
+    geometry gets none."""
+    inv_depths = inverse_depth_planes(min_depth, max_depth, n_depth_levels, ref_feat.device)
+    mats = build_plane_matrices(ref_pose, meas_pose, K, inv_depths)
+    ref = ref_feat.to(torch.float32).permute(0, 2, 3, 1).contiguous()
+    meas = meas_feat.to(torch.float32).permute(0, 2, 3, 1).contiguous()
+    return plane_sweep_train(ref, meas, mats.contiguous())

@@ -44,23 +44,41 @@ def library_path(name: str) -> Path:
     return BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 
 
+def build_all(names) -> dict[str, tuple[Path, str]]:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that has no library of
+    the same hash yet, one ``nvcc`` process per source, all running at once.
+    Returns {name: (library path, compiler output, "" if cached)}."""
+    results, running, nvcc = {}, [], None
+    for name in names:
+        lib = library_path(name)
+        if lib.is_file():
+            results[name] = (lib, "")
+            continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        nvcc = nvcc or find_nvcc()
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running.append((name, lib, tmp, cmd, proc))
+    failures = []
+    for name, lib, tmp, cmd, proc in running:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed ({proc.returncode}) on {name}.cu:\n"
+                            f"{' '.join(cmd)}\n{out}{err}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+        results[name] = (lib, out + err)
+    if failures:
+        raise KernelBuildError("\n".join(failures))
+    return results
+
+
 def build(name: str) -> tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless a library of the same hash exists.
     Returns the library's path and the compiler's output ("" if cached)."""
-    lib = library_path(name)
-    if lib.is_file():
-        return lib, ""
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}) on {name}.cu:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib, proc.stdout + proc.stderr
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

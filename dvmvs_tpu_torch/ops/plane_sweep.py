@@ -1,5 +1,6 @@
-"""Fused multi-view plane sweep: the CUDA kernel, its wrapper and its plain
-PyTorch version (counterpart of dvmvs_tpu/ops/pallas/cost_volume_kernel.py).
+"""Fused plane sweep: the CUDA kernels, their wrappers, their plain PyTorch
+versions and the autograd Function over them (counterpart of
+dvmvs_tpu/ops/pallas/cost_volume_kernel.py and cost_volume_vjp.py).
 
 ``plane_sweep_multiview`` takes the Pallas functions' own arguments with a
 leading batch dimension: ref (B, H, W, C), meas (B, V, H, W, C), per-plane
@@ -7,9 +8,20 @@ warp matrices (B, V, P, 3, 3) and view weights (B, V), and returns the
 (B, P, H, W) cost ``sum_v w_v * reduce_c(ref, bilinear(meas_v, M_{v,p}))``.
 A CPU tensor goes to ``plane_sweep_multiview_plain`` (gather based,
 ``F.grid_sample`` per plane chunk); a CUDA tensor launches
-``csrc/plane_sweep.cu`` on the current stream, which replaces both TPU
-kernels K1 (``pallas_plane_sweep_multiview``) and K2
-(``pallas_plane_sweep_multiview_dyn``) and needs no band ladder.
+``csrc/plane_sweep.cu`` on the current stream. That one kernel replaces the
+TPU kernels K1 (``pallas_plane_sweep_multiview``) and K2
+(``pallas_plane_sweep_multiview_dyn``), and with V=1 and weight 1 also the
+single-view training forwards K3 (``pallas_plane_sweep``) and K4
+(``pallas_plane_sweep_dyn``); it needs no band ladder.
+
+The wrapper is differentiable in dot mode: when grad mode is on and ref or
+meas requires a gradient, it goes through ``PlaneSweepFunction``, whose
+backward is ``csrc/plane_sweep_bwd.cu`` on the card (replacing K5
+``_plane_sweep_bwd_padded`` and K6 ``_plane_sweep_dyn_bwd_padded``) and
+autograd through the plain version on the CPU. The matrices and the view
+weights get no gradient, as in the JAX custom VJP. L1 mode has no backward
+kernel and raises when a gradient is asked for. ``plane_sweep_train`` is the
+single-view training entry.
 """
 
 from __future__ import annotations
@@ -23,8 +35,11 @@ import torch.nn.functional as F
 from dvmvs_tpu_torch.ops import cuda_build
 from dvmvs_tpu_torch.ops.geometry import inverse_pose, matmul_f32
 
-# Launches of the CUDA kernel in this process (never the plain version's).
+KERNELS = ("plane_sweep", "plane_sweep_bwd")
+
+# Launches of the CUDA kernels in this process (never the plain versions').
 launch_count = 0
+backward_launch_count = 0
 
 
 def build_plane_matrices(ref_pose, meas_pose, K, inv_depths):
@@ -61,7 +76,7 @@ def sweep_reduce(ref, meas, grids, dot_product: bool = True, plane_chunk: int = 
 
 
 def plane_sweep_multiview_plain(ref, meas, mats, weights, dot_product: bool = True):
-    """Plain PyTorch version of the kernel (same arguments and result).
+    """Plain PyTorch version of the forward kernel (same arguments and result).
 
     Coordinates come from the matrices as in the kernel; they are normalised
     with the reference's W/2, H/2 convention and sampled by ``F.grid_sample``
@@ -85,20 +100,38 @@ def plane_sweep_multiview_plain(ref, meas, mats, weights, dot_product: bool = Tr
     return total
 
 
+def plane_sweep_backward_plain(ref, meas, mats, weights, g):
+    """Plain version of the backward kernel: (d_ref, d_meas) of the dot-mode
+    sweep for the cotangent g (B, P, H, W), by autograd through
+    ``plane_sweep_multiview_plain``."""
+    with torch.enable_grad():
+        r = ref.detach().requires_grad_()
+        m = meas.detach().requires_grad_()
+        out = plane_sweep_multiview_plain(r, m, mats.detach(), weights.detach(), True)
+        d_ref, d_meas = torch.autograd.grad(out, (r, m), g)
+    return d_ref, d_meas
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_entry():
-    """The kernel's C entry point, built and loaded once per process."""
-    fn = cuda_build.load("plane_sweep").plane_sweep_multiview
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+def _entry(name: str):
+    """A kernel's C entry point, built and loaded once per process."""
+    if name == "plane_sweep":
+        fn = cuda_build.load(name).plane_sweep_multiview
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    else:
+        fn = cuda_build.load(name).plane_sweep_backward
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def build_kernel():
-    """Compile (if needed) and load the CUDA kernel; returns nvcc's output."""
-    _, log = cuda_build.build("plane_sweep")
-    _kernel_entry()
-    return log
+def build_kernels() -> dict:
+    """Compile (if needed, all sources at once) and load the CUDA kernels;
+    returns nvcc's output by kernel name."""
+    logs = {name: log for name, (_, log) in cuda_build.build_all(KERNELS).items()}
+    for name in KERNELS:
+        _entry(name)
+    return logs
 
 
 def _check(ref, meas, mats, weights):
@@ -120,6 +153,75 @@ def _check(ref, meas, mats, weights):
         raise ValueError(
             f"plane sweep: inconsistent shapes ref {tuple(ref.shape)}, meas "
             f"{tuple(meas.shape)}, mats {tuple(mats.shape)}, weights {tuple(weights.shape)}")
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"plane sweep: unsupported device {ref.device}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _sweep(ref, meas, mats, weights, dot_product: bool):
+    """The forward: plain version on the CPU, the kernel on the card."""
+    global launch_count
+    _check(ref, meas, mats, weights)
+    if ref.device.type == "cpu":
+        return plane_sweep_multiview_plain(ref, meas, mats, weights, dot_product)
+    B, H, W, C = ref.shape
+    V, P = mats.shape[1:3]
+    out = torch.empty((B, P, H, W), dtype=torch.float32, device=ref.device)
+    fn = _entry("plane_sweep")
+    with torch.cuda.device(ref.device):
+        err = fn(ref.data_ptr(), meas.data_ptr(), mats.data_ptr(), weights.data_ptr(),
+                 out.data_ptr(), B, V, P, H, W, C, int(bool(dot_product)), _stream(ref.device))
+    if err != 0:
+        raise RuntimeError(f"plane sweep kernel launch failed: cudaError {err}")
+    launch_count += 1
+    return out
+
+
+def plane_sweep_backward(ref, meas, mats, weights, g):
+    """(d_ref, d_meas) of the dot-mode sweep for the cotangent g (B, P, H, W):
+    plain version on the CPU, ``csrc/plane_sweep_bwd.cu`` on the card."""
+    global backward_launch_count
+    _check(ref, meas, mats, weights)
+    B, H, W, C = ref.shape
+    V, P = mats.shape[1:3]
+    if g.dtype != torch.float32 or not g.is_contiguous() or g.device != ref.device \
+            or tuple(g.shape) != (B, P, H, W):
+        raise ValueError(f"plane sweep backward: want a contiguous float32 cotangent "
+                         f"{(B, P, H, W)} on {ref.device}, got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}")
+    if ref.device.type == "cpu":
+        return plane_sweep_backward_plain(ref, meas, mats, weights, g)
+    d_ref = torch.empty_like(ref)
+    d_meas = torch.zeros_like(meas)
+    fn = _entry("plane_sweep_bwd")
+    with torch.cuda.device(ref.device):
+        err = fn(ref.data_ptr(), meas.data_ptr(), mats.data_ptr(), weights.data_ptr(),
+                 g.data_ptr(), d_ref.data_ptr(), d_meas.data_ptr(), B, V, P, H, W, C,
+                 _stream(ref.device))
+    if err != 0:
+        raise RuntimeError(f"plane sweep backward kernel launch failed: cudaError {err}")
+    backward_launch_count += 1
+    return d_ref, d_meas
+
+
+class PlaneSweepFunction(torch.autograd.Function):
+    """Dot-mode sweep (ref, meas, mats, weights) -> (B, P, H, W) with the
+    backward kernel as its VJP; the matrices and weights get no gradient."""
+
+    @staticmethod
+    def forward(ctx, ref, meas, mats, weights):
+        ctx.save_for_backward(ref, meas, mats, weights)
+        return _sweep(ref, meas, mats, weights, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        ref, meas, mats, weights = ctx.saved_tensors
+        d_ref, d_meas = plane_sweep_backward(ref, meas, mats, weights, g.contiguous())
+        need_ref, need_meas = ctx.needs_input_grad[:2]
+        return d_ref if need_ref else None, d_meas if need_meas else None, None, None
 
 
 def plane_sweep_multiview(ref, meas, mats, weights, dot_product: bool = True):
@@ -128,22 +230,22 @@ def plane_sweep_multiview(ref, meas, mats, weights, dot_product: bool = True):
     ref (B, H, W, C), meas (B, V, H, W, C), mats (B, V, P, 3, 3), weights
     (B, V), all contiguous float32 on one device. CPU tensors take the plain
     version; CUDA tensors launch the kernel (and raise if it cannot run).
+    With grad mode on and ref or meas requiring a gradient, the result
+    carries ``PlaneSweepFunction``'s backward on either device; L1 mode then
+    raises ``NotImplementedError``.
     """
-    global launch_count
-    _check(ref, meas, mats, weights)
-    if ref.device.type == "cpu":
-        return plane_sweep_multiview_plain(ref, meas, mats, weights, dot_product)
-    if ref.device.type != "cuda":
-        raise ValueError(f"plane sweep: unsupported device {ref.device}")
-    B, H, W, C = ref.shape
-    V, P = mats.shape[1:3]
-    out = torch.empty((B, P, H, W), dtype=torch.float32, device=ref.device)
-    fn = _kernel_entry()
-    with torch.cuda.device(ref.device):
-        stream = torch.cuda.current_stream(ref.device).cuda_stream
-        err = fn(ref.data_ptr(), meas.data_ptr(), mats.data_ptr(), weights.data_ptr(),
-                 out.data_ptr(), B, V, P, H, W, C, int(bool(dot_product)), stream)
-    if err != 0:
-        raise RuntimeError(f"plane sweep kernel launch failed: cudaError {err}")
-    launch_count += 1
-    return out
+    if torch.is_grad_enabled() and (ref.requires_grad or meas.requires_grad):
+        if not dot_product:
+            raise NotImplementedError(
+                "plane sweep: L1 mode has no backward kernel (csrc/plane_sweep_bwd.cu "
+                "covers the dot product only); call it under torch.no_grad()")
+        return PlaneSweepFunction.apply(ref, meas, mats, weights)
+    return _sweep(ref, meas, mats, weights, dot_product)
+
+
+def plane_sweep_train(ref, meas, mats):
+    """Single-view training sweep (K3/K4 forward, K5/K6 backward): ref and
+    meas (B, H, W, C), mats (B, P, 3, 3), contiguous float32 -> (B, P, H, W)
+    dot-product cost, differentiable in ref and meas."""
+    weights = torch.ones((ref.shape[0], 1), dtype=torch.float32, device=ref.device)
+    return PlaneSweepFunction.apply(ref, meas[:, None], mats[:, None], weights)

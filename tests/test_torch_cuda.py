@@ -1,11 +1,13 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU and skip elsewhere. They import neither jax
 nor the test conftest, so on a machine with the card and without jax they
-run as ``python -m pytest --noconftest -q tests/test_torch_cuda.py``.
-Tolerance, absolute (coordinate fold and order of summation): 5e-4 for the
-dot cost, the JAX kernel tests' own; 2e-3 for the L1 cost, which sums over
-the channels where the dot cost averages (measured 7.7e-4 at C=32).
+run as ``python -m pytest --noconftest -q tests/test_torch_cuda.py`` from
+the repo root. Forward tolerance, absolute (coordinate fold and order of
+summation): 5e-4 for the dot cost, the JAX kernel tests' own; 2e-3 for the
+L1 cost, which sums over the channels where the dot cost averages (measured
+7.7e-4 at C=32). Backward: tests/test_pallas_vjp.py's atol 2e-4 *
+max(|grad|, 1) against autograd through the plain version.
 """
 
 import numpy as np
@@ -13,6 +15,7 @@ import pytest
 import torch
 from scipy.spatial.transform import Rotation
 
+import chip_smoke as cs
 from dvmvs_tpu import config
 from dvmvs_tpu_torch.ops import plane_sweep as tps
 from dvmvs_tpu_torch.ops.cost_volume import inverse_depth_planes
@@ -166,3 +169,100 @@ def test_engine_step_queues_without_host_sync(cuda_device, kind):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert depth.shape == (1, 64, 96) and torch.isfinite(depth).all()
+
+
+# --- the backward kernel (csrc/plane_sweep_bwd.cu) and the training path ---
+
+
+def _grad_close(got, want):
+    """test_pallas_vjp.py's gradient limit: atol 2e-4 * max(|grad|, 1)."""
+    scale = max(want.abs().max().item(), 1.0)
+    err = (got - want).abs().max().item()
+    assert err <= cs.GRAD_ATOL * scale, (err, scale)
+
+
+@pytest.mark.parametrize("case", list(cs.BWD_CASES))
+def test_backward_kernel_matches_autograd_through_plain(cuda_device, case):
+    """chip_smoke.py's [bwd-compare] geometries at the training shape (B=4,
+    V=1, C=32, 128x128, P=64): lateral, typical, 35-degree roll, 120-degree
+    yaw behind the camera, C=30 and a mixed-geometry batch."""
+    geometries, c = cs.BWD_CASES[case]
+    ref, meas, mats, w, g = cs.train_case(torch, tps, 0, geometries, c, cuda_device)
+    want_ref, want_meas = tps.plane_sweep_backward_plain(ref, meas, mats, w, g)
+    before = tps.backward_launch_count
+    got_ref, got_meas = tps.plane_sweep_backward(ref, meas, mats, w, g)
+    torch.cuda.synchronize()
+    assert tps.backward_launch_count == before + 1
+    assert torch.isfinite(got_ref).all() and torch.isfinite(got_meas).all()
+    _grad_close(got_ref, want_ref)
+    _grad_close(got_meas, want_meas)
+    # K3/K4: the forward kernel with V = 1 and weight 1
+    fwd = tps.plane_sweep_multiview(ref, meas, mats, w)
+    assert (fwd - tps.plane_sweep_multiview_plain(ref, meas, mats, w)).abs().max().item() <= \
+        ATOL[True]
+
+
+def test_backward_kernel_with_a_masked_view(cuda_device):
+    """The online shape, V=2 with the second view masked: it gets no gradient."""
+    ref, meas, mats = _case(3, [2, 3, 1], [0.12, 0.03, 0.02], 32, cuda_device)
+    w = torch.tensor([[1.0, 0.0]], device=cuda_device)
+    g = torch.randn(1, P, H, W, device=cuda_device, generator=torch.Generator(
+        cuda_device).manual_seed(0))
+    want_ref, want_meas = tps.plane_sweep_backward_plain(ref, meas, mats, w, g)
+    got_ref, got_meas = tps.plane_sweep_backward(ref, meas, mats, w, g)
+    torch.cuda.synchronize()
+    _grad_close(got_ref, want_ref)
+    _grad_close(got_meas, want_meas)
+    assert got_meas[0, 1].abs().max().item() == 0.0
+
+
+def test_wrapper_gradients_on_the_card(cuda_device):
+    """R1 on CUDA tensors: with a gradient asked for, the fused wrapper runs
+    both kernels and the result carries a grad_fn; L1 mode raises."""
+    ref, meas, mats = _case(4, [2, 3, 1], [0.12, 0.03, 0.02], 32, cuda_device)
+    w = torch.full((1, V), 0.5, device=cuda_device)
+    r, m = ref.clone().requires_grad_(), meas.clone().requires_grad_()
+    before = (tps.launch_count, tps.backward_launch_count)
+    out = tps.plane_sweep_multiview(r, m, mats, w)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tps.launch_count, tps.backward_launch_count) == (before[0] + 1, before[1] + 1)
+    want_r, want_m = ref.clone().requires_grad_(), meas.clone().requires_grad_()
+    tps.plane_sweep_multiview_plain(want_r, want_m, mats, w).square().sum().backward()
+    _grad_close(r.grad, want_r.grad)
+    _grad_close(m.grad, want_m.grad)
+    with pytest.raises(NotImplementedError):
+        tps.plane_sweep_multiview(r, m, mats, w, dot_product=False)
+
+
+@pytest.mark.parametrize("freeze_bn", [False, True])
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, freeze_bn):
+    """One fusionnet train step (stage 2, every module trainable) at 64x64,
+    S=3, B=2, P=16 on the card and on the CPU from the same seeded weights,
+    held as chip_smoke.py's [train-ref] holds it: loss and BatchNorm
+    statistics 1e-4 relative; gradients per tensor 2e-3 of its largest
+    |grad| with frozen BatchNorm, and per module 0.1 relative L2 with
+    train-mode BatchNorm, whose float32 gradients are ill-conditioned at
+    this size (tests/test_torch_training.py measures both)."""
+    import copy
+
+    from dvmvs_tpu_torch.apps.run_training import make_model
+    from dvmvs_tpu_torch.parallel import train as tt
+
+    cfg = config.TrainConfig(image_width=64, image_height=64,
+                             depth=config.DepthConfig(0.25, 20.0, 16))
+    cpu = make_model("fusionnet", cfg, "cpu", seed=1).train(not freeze_bn)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    before = (tps.launch_count, tps.backward_launch_count)
+    metrics = {}
+    for model, device in ((card, cuda_device), (cpu, "cpu")):
+        opt = tt.make_optimizer(model, tt.FUSIONNET_STAGES[2])
+        metrics[device] = tt.train_step(model, opt, cs.small_batch(torch, device), "fusionnet")
+    torch.cuda.synchronize()
+    assert tps.launch_count - before[0] == 2 and tps.backward_launch_count - before[1] == 2
+    want = metrics["cpu"]["loss"].item()
+    assert abs(metrics[cuda_device]["loss"].item() - want) <= cs.STEP_RTOL * abs(want)
+    grad_gap, stat_gap = cs.train_step_gaps(torch, cpu, card, freeze_bn)
+    assert grad_gap <= (cs.FROZEN_GRAD_TOL if freeze_bn else cs.TRAIN_GRAD_L2)
+    assert stat_gap <= cs.STEP_RTOL

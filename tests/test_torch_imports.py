@@ -1,8 +1,10 @@
 """Package hygiene of dvmvs_tpu_torch: it imports neither jax nor OpenCV,
 and of the JAX package only the jax-free config; its kernel build reports
-compiler failures, and chip_smoke.py refuses to run without a GPU.
+compiler failures and builds all sources at once, and chip_smoke.py refuses
+to run without a GPU.
 """
 
+import json
 import os
 import shutil
 import subprocess
@@ -29,12 +31,20 @@ def test_port_imports_no_jax_or_cv2():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2")
                      or m.startswith("dvmvs_tpu.") and m != "dvmvs_tpu.config")
-        print(len(names), bad)
+        print(json.dumps({"names": names, "bad": bad}))
     """)
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300, check=True).stdout.split()
-    assert int(out[0]) >= 20  # every module of the package was imported
-    assert out[1:] == ["[]"]
+    out = subprocess.run([sys.executable, "-c", "import json\n" + code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300, check=True).stdout
+    result = json.loads(out)
+    assert result["bad"] == []
+    assert TRAINING_MODULES <= set(result["names"])  # the training slice was walked too
+    assert len(result["names"]) >= 30
+
+
+TRAINING_MODULES = {f"dvmvs_tpu_torch.{m}" for m in (
+    "apps.run_training", "parallel.train", "models.training_heads", "utils.losses",
+    "utils.checkpoint", "utils.run_logging", "data.crawler", "data.preprocess",
+    "data.dataset")}
 
 
 def _fake_nvcc(tmp_path, body):
@@ -59,6 +69,29 @@ def test_kernel_build_reports_compiler_output_and_caches(tmp_path, monkeypatch):
     assert lib.is_file() and "built" in log
     assert lib.parent.parent == tmp_path / "build"
     assert cuda_build.build("plane_sweep") == (lib, "")
+
+
+def test_kernels_build_all_at_once(tmp_path, monkeypatch):
+    """One nvcc per source, started together; a failure names its source."""
+    from dvmvs_tpu_torch.ops import plane_sweep
+
+    monkeypatch.setattr(cuda_build, "BUILD_ROOT", tmp_path / "build")
+    nvcc = _fake_nvcc(tmp_path, 'while [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n'
+                                'echo built "$2"\n')
+    monkeypatch.setattr(cuda_build, "find_nvcc", lambda: nvcc)
+    built = cuda_build.build_all(plane_sweep.KERNELS)
+    assert sorted(built) == sorted(plane_sweep.KERNELS) == ["plane_sweep", "plane_sweep_bwd"]
+    assert all(lib.is_file() and "built" in log for lib, log in built.values())
+
+    monkeypatch.setattr(cuda_build, "BUILD_ROOT", tmp_path / "other")
+    (tmp_path / "failing").mkdir()
+    failing = _fake_nvcc(tmp_path / "failing",
+                         'for a in "$@"; do case "$a" in *_bwd.cu) echo bad >&2; exit 1;; esac; '
+                         'done\nwhile [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n')
+    monkeypatch.setattr(cuda_build, "find_nvcc", lambda: failing)
+    with pytest.raises(cuda_build.KernelBuildError, match="plane_sweep_bwd.cu"):
+        cuda_build.build_all(plane_sweep.KERNELS)
+    assert [p.name for p in (tmp_path / "other").rglob("*.so")] == ["libplane_sweep.so"]
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

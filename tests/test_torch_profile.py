@@ -1,9 +1,18 @@
 """The step profiler's trace arithmetic (dvmvs_tpu_torch/apps/profile_step.py)
-on hand-made chrome-trace events; the profile itself needs a GPU."""
+on hand-made chrome-trace events, and its synthetic training batch; the
+profile itself needs a GPU."""
 
+import numpy as np
 import pytest
 
-from dvmvs_tpu_torch.apps.profile_step import WINDOW, summarize_trace, union_length
+from dvmvs_tpu_torch.apps.profile_step import (
+    SWEEP_KERNELS,
+    WINDOW,
+    kernel_ms_by_prefix,
+    summarize_trace,
+    synthetic_train_batch,
+    union_length,
+)
 
 
 @pytest.mark.parametrize("intervals,want", [
@@ -48,6 +57,33 @@ def test_summarize_trace_attributes_kernels_to_modules():
         {"encoder": 0.01, "decoder": 0.01, "other": 0.004})
     assert got["device_ms_by_kernel"] == pytest.approx(
         {"conv": 0.03, "plane_sweep": 0.008, "Memcpy DtoH": 0.01})
+
+
+def test_plane_sweep_kernel_time_by_prefix():
+    """The forward's prefix must not also count the backward kernel."""
+    events = [
+        _span("kernel", "void (anonymous namespace)::plane_sweep_kernel<true, true>("
+                        "float const*)", 0, 30),
+        _span("kernel", "void (anonymous namespace)::plane_sweep_bwd_kernel<true>(float const*)",
+              40, 50),
+        _span("kernel", "plane_sweep_kernel<false, true>(float const*)", 100, 10),
+        _span("kernel", "my_plane_sweep_kernel<true>(float const*)", 110, 10),  # not ours
+        _span("kernel", "conv", 120, 70),
+        _span("cuda_runtime", "plane_sweep_kernel<", 0, 5),  # a host span
+    ]
+    got = kernel_ms_by_prefix(events, SWEEP_KERNELS)
+    assert got == pytest.approx({"forward": 0.04, "backward": 0.05})
+
+
+def test_synthetic_train_batch_windows_one_walk():
+    batch = synthetic_train_batch(32, batch_size=3, length=4)
+    assert batch["images"].shape == (3, 4, 32, 32, 3) and batch["depths"].shape == (3, 4, 32, 32)
+    assert batch["poses"].shape == (3, 4, 4, 4) and batch["K"].shape == (3, 3, 3)
+    assert all(v.dtype == np.float32 for v in batch.values())
+    # element b starts one frame after element b-1
+    np.testing.assert_array_equal(batch["poses"][1, :3], batch["poses"][0, 1:])
+    np.testing.assert_array_equal(batch["images"][2, 0], batch["images"][0, 2])
+    assert (batch["depths"] > 0).mean() > 0.9
 
 
 def test_summarize_trace_refuses_a_trace_without_device_kernels():
