@@ -6,10 +6,11 @@ hand-written kernels from ``dvmvs_tpu_torch/csrc`` (the plane sweep and its
 backward, one nvcc each, in parallel) and drives both paths of the port:
 
   - online: the forward kernel against its plain PyTorch version at the
-    online path's shape and its timing, a synthetic 320x256 scene through the
-    online fusionnet loop (``predict_stream`` -> keyframe buffer ->
-    ``InferenceEngine``) with seeded random weights, and agreement with the
-    same engine on the CPU;
+    online path's shape (eight geometries and modes, C=30 and C=64) and at
+    640x480 frames, its timing at both beside its bound (the least time the
+    card could take), a synthetic 320x256 scene through the online fusionnet
+    loop (``predict_stream`` -> keyframe buffer -> ``InferenceEngine``) with
+    seeded random weights, and agreement with the same engine on the CPU;
   - training: the forward kernel with one view (K3/K4) and the backward
     kernel (K5/K6) against the plain version and autograd through it at the
     training shape, their timing, ``run_training.main`` on a synthetic
@@ -20,7 +21,7 @@ backward, one nvcc each, in parallel) and drives both paths of the port:
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. Each phase prints its lines; any failure raises, so the exit code is
-non-zero. It imports neither jax nor OpenCV.
+non-zero. It imports nothing of the JAX package, nor jax, nor OpenCV.
 
 Output: phase lines, then the card's ``name, power.limit``, one JSON line
 with the kernels' measurements, and as the last line
@@ -30,7 +31,6 @@ with the kernels' measurements, and as the last line
 from __future__ import annotations
 
 import copy
-import importlib.util
 import json
 import multiprocessing
 import os
@@ -40,7 +40,9 @@ import time
 
 import numpy as np
 
-B, V, C, H, W, P = 1, 2, 32, 128, 160, 64  # cost volume at 320x256 frames
+ONLINE = (1, 2, 32, 128, 160, 64)  # (B, V, C, H, W, P): the cost volume at 320x256 frames
+FRAMES_640 = (1, 2, 32, 240, 320, 64)  # 640x480 frames, beyond what the TPU kernels held
+P = ONLINE[5]
 # absolute: the JAX kernel tests' 5e-4 for the dot cost, which averages over
 # channels; the L1 cost sums over them, and its measured 7.7e-4 gap (coordinate
 # fold against normalised grids, C=32) gets about 2.5x room
@@ -64,57 +66,23 @@ TRAIN_SCENE, VAL_SCENE = (100, 100), (101, 60)
 STEP_RTOL, FROZEN_GRAD_TOL, TRAIN_GRAD_L2 = 1e-4, 2e-3, 0.1
 
 
-def _pose(rx, ry, rz, t):
-    """Camera-to-world pose from xyz Euler angles in degrees."""
-    ax, ay, az = np.radians([rx, ry, rz])
-    Rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)], [0, np.sin(ax), np.cos(ax)]])
-    Ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0], [-np.sin(ay), 0, np.cos(ay)]])
-    Rz = np.array([[np.cos(az), -np.sin(az), 0], [np.sin(az), np.cos(az), 0], [0, 0, 1]])
-    pose = np.eye(4)
-    pose[:3, :3] = Rz @ Ry @ Rx  # extrinsic xyz, as scipy's from_euler("xyz")
-    pose[:3, 3] = t
-    return pose.astype(np.float32)
+def _with_c(shape, c):
+    return shape[:2] + (c,) + shape[3:]
 
 
-# name -> (euler of view 0, translation of view 0, C, view weights, dot product)
+# name -> (shape, euler of view 0, translation of view 0, view weights, dot product)
 CASES = {
-    "lateral": ((0, 0, 0), (0.12, 0.0, 0.0), C, (0.5, 0.5), True),
-    "typical": ((2, 3, 1), (0.12, 0.03, 0.02), C, (0.5, 0.5), True),
-    "roll_forward": ((0, 0, 4), (0.05, 0.0, 0.1), C, (0.5, 0.5), True),
-    "extreme_roll_35": ((0, 0, 35), (0.1, 0.0, 0.0), C, (0.5, 0.5), True),
-    "behind_camera_yaw_120": ((0, 120, 0), (0.1, 0.0, 2.0), C, (0.5, 0.5), True),
-    "masked_view": ((2, 3, 1), (0.12, 0.03, 0.02), C, (1.0, 0.0), True),
-    "c30": ((2, 3, 1), (0.12, 0.03, 0.02), 30, (0.5, 0.5), True),
-    "l1": ((2, 3, 1), (0.12, 0.03, 0.02), C, (0.5, 0.5), False),
+    "lateral": (ONLINE, (0, 0, 0), (0.12, 0.0, 0.0), (0.5, 0.5), True),
+    "typical": (ONLINE, (2, 3, 1), (0.12, 0.03, 0.02), (0.5, 0.5), True),
+    "roll_forward": (ONLINE, (0, 0, 4), (0.05, 0.0, 0.1), (0.5, 0.5), True),
+    "extreme_roll_35": (ONLINE, (0, 0, 35), (0.1, 0.0, 0.0), (0.5, 0.5), True),
+    "behind_camera_yaw_120": (ONLINE, (0, 120, 0), (0.1, 0.0, 2.0), (0.5, 0.5), True),
+    "masked_view": (ONLINE, (2, 3, 1), (0.12, 0.03, 0.02), (1.0, 0.0), True),
+    "c30": (_with_c(ONLINE, 30), (2, 3, 1), (0.12, 0.03, 0.02), (0.5, 0.5), True),
+    "c64": (_with_c(ONLINE, 64), (2, 3, 1), (0.12, 0.03, 0.02), (0.5, 0.5), True),
+    "l1": (ONLINE, (2, 3, 1), (0.12, 0.03, 0.02), (0.5, 0.5), False),
+    "frames_640x480": (FRAMES_640, (2, 3, 1), (0.12, 0.03, 0.02), (0.5, 0.5), True),
 }
-
-
-def sweep_inputs(torch, ps, seed, euler, t, c, weights, device):
-    rs = np.random.RandomState(seed)
-    ref = torch.from_numpy(rs.randn(B, H, W, c).astype(np.float32)).to(device)
-    meas = torch.from_numpy(rs.randn(B, V, H, W, c).astype(np.float32)).to(device)
-    K = torch.tensor([[152.0, 0, W / 2], [0, 152.0, H / 2], [0, 0, 1]], device=device)
-    poses = torch.from_numpy(np.stack([_pose(*euler, t), _pose(1, 2, 0.5, (0.1, 0.02, 0.0))]))
-    from dvmvs_tpu_torch.ops.cost_volume import inverse_depth_planes
-    mats = ps.build_plane_matrices(torch.eye(4, device=device), poses.to(device), K,
-                                   inverse_depth_planes(0.25, 20.0, P, device))
-    w = torch.tensor([weights], dtype=torch.float32, device=device)
-    return ref, meas, mats[None].contiguous(), w
-
-
-def time_ms(torch, fn, n_warmup=5, n=30):
-    """Median over ``n`` single launches timed with CUDA events."""
-    for _ in range(n_warmup):
-        fn()
-    times = []
-    for _ in range(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def lap(state):
@@ -129,6 +97,7 @@ def train_case(torch, ps, seed, geometries, c, device):
     element: ref (B,H,W,C), meas (B,1,H,W,C), mats (B,1,P,3,3), weights 1,
     and a cotangent (B,P,H,W)."""
     from dvmvs_tpu_torch.ops.cost_volume import inverse_depth_planes
+    from dvmvs_tpu_torch.ops.sweep_measure import pose
 
     rs = np.random.RandomState(seed)
     b = len(geometries)
@@ -136,7 +105,7 @@ def train_case(torch, ps, seed, geometries, c, device):
     meas = torch.from_numpy(rs.randn(b, 1, TH, TW, c).astype(np.float32)).to(device)
     g = torch.from_numpy(rs.randn(b, P, TH, TW).astype(np.float32)).to(device)
     K = torch.tensor([[0.75 * TW, 0, TW / 2], [0, 0.75 * TW, TH / 2], [0, 0, 1]], device=device)
-    poses = torch.from_numpy(np.stack([_pose(*e, t) for e, t in geometries])).to(device)
+    poses = torch.from_numpy(np.stack([pose(*e, t) for e, t in geometries])).to(device)
     mats = ps.build_plane_matrices(torch.eye(4, device=device), poses, K,
                                    inverse_depth_planes(0.25, 20.0, P, device))
     return ref, meas, mats[:, None].contiguous(), torch.ones((b, 1), device=device), g
@@ -155,19 +124,10 @@ BWD_CASES = {
 }
 
 
-def _load_synthetic():
-    """dvmvs_tpu/data/synthetic.py by path: its package imports OpenCV."""
-    spec = importlib.util.spec_from_file_location(
-        "synthetic_scene", os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                        "dvmvs_tpu", "data", "synthetic.py"))
-    synth = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(synth)
-    return synth
-
-
 def render_frames(seed, n_frames, first, last, size):
     """Frames first..last-1 of SynthScene(seed)'s walk, (rgb uint8, depth)."""
-    synth = _load_synthetic()
+    from dvmvs_tpu_torch.data import synthetic as synth
+
     scene = synth.SynthScene(seed)
     poses = scene.trajectory(n_frames)
     K = synth.default_K(size, size)
@@ -179,7 +139,8 @@ def write_corpus(root, size=256, workers=8):
     train.txt, validation.txt) of TRAIN_SCENE and VAL_SCENE, rendered at the
     training size (no resize, so no OpenCV) by ``workers`` spawned
     processes."""
-    synth = _load_synthetic()
+    from dvmvs_tpu_torch.data import synthetic as synth
+
     jobs, names = [], []
     for seed, n in (TRAIN_SCENE, VAL_SCENE):
         step = -(-n // workers)
@@ -244,8 +205,10 @@ def check_run(torch, ps, run_dir, kind, n_stages, steps, s, peak_mib):
 
 
 def small_batch(torch, device, seed=0, s=3, b=2, size=64):
+    from dvmvs_tpu_torch.ops.sweep_measure import pose
+
     rs = np.random.RandomState(seed)
-    poses = np.stack([[_pose(*rs.uniform(-3, 3, 3), rs.uniform(-0.1, 0.1, 3))
+    poses = np.stack([[pose(*rs.uniform(-3, 3, 3), rs.uniform(-0.1, 0.1, 3))
                        for _ in range(s)] for _ in range(b)])
     K = np.array([[30.0, 0, size / 2], [0, 30.0, size / 2], [0, 0, 1]], np.float32)
     batch = {"images": rs.randn(b, s, size, size, 3).astype(np.float32) * 0.5,
@@ -296,11 +259,13 @@ def main():
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
-    from dvmvs_tpu.config import DepthConfig, TestConfig, TrainConfig
     from dvmvs_tpu_torch.apps.engine import InferenceEngine
     from dvmvs_tpu_torch.apps.profile_step import synthetic_stream
     from dvmvs_tpu_torch.apps.run_testing_online import predict_stream
+    from dvmvs_tpu_torch.config import DepthConfig, TestConfig, TrainConfig
     from dvmvs_tpu_torch.ops import plane_sweep as ps
+    from dvmvs_tpu_torch.ops.sweep_measure import (SINGLE_LAUNCH_TIMER, TIMER, single_launch_ms,
+                                                   sweep_bound, sweep_case, time_ms)
     from dvmvs_tpu_torch.utils.results import InferenceTimer
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -325,29 +290,38 @@ def main():
           flush=True)
     clock = [time.perf_counter()]
 
-    # 3. kernel vs plain version at the path's shape
+    # 3. kernel vs plain version at the path's shapes
     max_err = 0.0
-    for name, (euler, t, c, weights, dot) in CASES.items():
-        ref, meas, mats, w = sweep_inputs(torch, ps, 0, euler, t, c, weights, device)
+    for name, (shape, euler, t, weights, dot) in CASES.items():
+        ref, meas, mats, w = sweep_case(shape, euler, t, weights, seed=0, device=device)
         want = ps.plane_sweep_multiview_plain(ref, meas, mats, w, dot)
         torch.cuda.synchronize()
         got = ps.plane_sweep_multiview(ref, meas, mats, w, dot)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        print(f"[compare] {name}: max_abs_diff={err:.3e} (tol {TOL[dot]:g}), "
+        print(f"[compare] {name} {shape}: max_abs_diff={err:.3e} (tol {TOL[dot]:g}), "
               f"max |cost| {want.abs().max().item():.3f} ({lap(clock):.1f} s)", flush=True)
         if not (np.isfinite(err) and err <= TOL[dot]):
             raise AssertionError(f"kernel disagrees with the plain version on {name}: {err}")
         max_err = max(max_err, err)
 
-    # 4. time at the path's shape (typical geometry, dot product)
-    ref, meas, mats, w = sweep_inputs(torch, ps, 1, *CASES["typical"][:2], C, (0.5, 0.5), device)
-    kernel_ms = time_ms(torch, lambda: ps.plane_sweep_multiview(ref, meas, mats, w))
-    plain_ms = time_ms(torch, lambda: ps.plane_sweep_multiview_plain(ref, meas, mats, w))
-    kernel_ms_2 = time_ms(torch, lambda: ps.plane_sweep_multiview(ref, meas, mats, w))
-    print(f"[time] plane sweep (1,2,{C},{H},{W}) P={P}: kernel {kernel_ms:.4f} ms "
-          f"(again {kernel_ms_2:.4f}), plain {plain_ms:.4f} ms (median of 30, CUDA events; "
-          f"{lap(clock):.1f} s)", flush=True)
+    # 4. time at the online shape and at 640x480 frames (typical geometry,
+    # dot product) beside the least time the card could take (the bound)
+    timing = {}
+    for shape in (ONLINE, FRAMES_640):
+        ref, meas, mats, w = sweep_case(shape, seed=1, device=device)
+        kernel_ms = time_ms(lambda: ps.plane_sweep_multiview(ref, meas, mats, w))
+        plain_ms = time_ms(lambda: ps.plane_sweep_multiview_plain(ref, meas, mats, w))
+        kernel_ms_2 = time_ms(lambda: ps.plane_sweep_multiview(ref, meas, mats, w))
+        single_ms = single_launch_ms(lambda: ps.plane_sweep_multiview(ref, meas, mats, w))
+        bound = sweep_bound(ref, meas, mats, w)
+        timing[shape] = (kernel_ms, plain_ms, bound, single_ms)
+        print(f"[time] plane sweep (B,V,C,H,W,P)={shape}: kernel {kernel_ms:.4f} ms (again "
+              f"{kernel_ms_2:.4f}; {TIMER}), single launches through the wrapper {single_ms:.4f} "
+              f"ms ({SINGLE_LAUNCH_TIMER}), plain {plain_ms:.4f} ms; bound "
+              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['bytes']} bytes, "
+              f"{bound['flops']} flops), {bound['bound_ms'] / kernel_ms:.1%} of it reached "
+              f"({lap(clock):.1f} s)", flush=True)
 
     # 5. main path: the fusionnet online loop at 320x256
     cfg = TestConfig()
@@ -431,20 +405,26 @@ def main():
     def pair(sweep):
         return lambda: torch.autograd.grad(sweep(r, m, mats, w), (r, m), g)
 
-    pair_ms = time_ms(torch, pair(ps.plane_sweep_multiview))
-    plain_pair_ms = time_ms(torch, pair(ps.plane_sweep_multiview_plain))
-    pair_ms_2 = time_ms(torch, pair(ps.plane_sweep_multiview))
+    pair_ms = time_ms(pair(ps.plane_sweep_multiview))
+    plain_pair_ms = time_ms(pair(ps.plane_sweep_multiview_plain))
+    pair_ms_2 = time_ms(pair(ps.plane_sweep_multiview))
     plain_out = ps.plane_sweep_multiview_plain(r, m, mats, w)
-    bwd_ms = time_ms(torch, lambda: ps.plane_sweep_backward(ref, meas, mats, w, g))
-    plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(plain_out, (r, m), g,
+    bwd_ms = time_ms(lambda: ps.plane_sweep_backward(ref, meas, mats, w, g))
+    bwd_single_ms = single_launch_ms(lambda: ps.plane_sweep_backward(ref, meas, mats, w, g))
+    plain_bwd_ms = time_ms(lambda: torch.autograd.grad(plain_out, (r, m), g,
                                                               retain_graph=True))
-    train_fwd_ms = time_ms(torch, lambda: ps.plane_sweep_multiview(ref, meas, mats, w))
+    train_fwd_ms = time_ms(lambda: ps.plane_sweep_multiview(ref, meas, mats, w))
     del plain_out
+    bwd_bound = sweep_bound(ref, meas, mats, w, backward=True)
+    train_fwd_bound = sweep_bound(ref, meas, mats, w)
     print(f"[bwd-time] ({TB},1,{TC},{TH},{TW}) P={P}, typical geometry: forward+backward "
           f"kernels {pair_ms:.4f} ms (again {pair_ms_2:.4f}), plain with autograd "
-          f"{plain_pair_ms:.4f} ms; backward alone: kernel {bwd_ms:.4f} ms, plain (autograd "
-          f"of a kept graph) {plain_bwd_ms:.4f} ms; forward kernel alone {train_fwd_ms:.4f} ms "
-          f"(median of 30, CUDA events; {lap(clock):.1f} s)", flush=True)
+          f"{plain_pair_ms:.4f} ms; backward alone: kernel {bwd_ms:.4f} ms (single launches "
+          f"{bwd_single_ms:.4f} ms), plain (autograd "
+          f"of a kept graph) {plain_bwd_ms:.4f} ms, bound {bwd_bound['bound_ms']:.4f} ms by "
+          f"{bwd_bound['bound_by']} ({bwd_bound['bound_ms'] / bwd_ms:.1%} of it reached); "
+          f"forward kernel alone {train_fwd_ms:.4f} ms, bound {train_fwd_bound['bound_ms']:.4f} "
+          f"ms ({train_fwd_bound['bound_ms'] / train_fwd_ms:.1%}) ({lap(clock):.1f} s)", flush=True)
 
     # 9. [train] the training path: run_training.main on a 256x256 corpus
     from dvmvs_tpu_torch.apps import run_training
@@ -525,8 +505,11 @@ def main():
         if not (loss_gap <= STEP_RTOL and grad_gap <= grad_tol and stat_gap <= STEP_RTOL):
             raise AssertionError("the card's train step disagrees with the CPU's")
 
-    # 12. results
+    # 12. results: the forward at the online shape (its main path), the
+    # backward at the training shape
     fwd_launches, bwd_launches = runs["fusionnet"][:2]
+    online_ms, online_plain_ms, online_bound, online_single_ms = timing[ONLINE]
+    big_ms, big_plain_ms, big_bound, _ = timing[FRAMES_640]
     print(card)
     print(json.dumps({"kernels": [{
         "name": "plane_sweep_multiview",
@@ -537,21 +520,42 @@ def main():
                           "dvmvs_tpu/ops/pallas/cost_volume_kernel.py:135",
                           "dvmvs_tpu/ops/pallas/cost_volume_kernel.py:524"],
         "note": "K3/K4 (single-view training forward) are this kernel with V=1, weight 1",
-        "launches": fwd_launches,
-        "launches_online": launches,
+        "shape": dict(zip("BVCHWP", ONLINE)),
+        "launches": launches,
+        "launches_training": fwd_launches,
         "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "ms": online_ms,
+        "plain_ms": online_plain_ms,
+        "bound_ms": online_bound["bound_ms"],
+        "bound_by": online_bound["bound_by"],
+        "library_ms": None,
+        "share_of_bound": online_bound["bound_ms"] / online_ms,
+        "timer": TIMER,
+        "ms_single_launch": online_single_ms,
+        "single_launch_timer": SINGLE_LAUNCH_TIMER,
+        "ms_640x480": big_ms,
+        "plain_ms_640x480": big_plain_ms,
+        "bound_ms_640x480": big_bound["bound_ms"],
+        "ms_training": train_fwd_ms,
+        "bound_ms_training": train_fwd_bound["bound_ms"],
     }, {
         "name": "plane_sweep_backward",
         "route": "cuda",
         "source": "dvmvs_tpu_torch/csrc/plane_sweep_bwd.cu",
         "replaces": "dvmvs_tpu/ops/pallas/cost_volume_vjp.py:127",
         "also_replaces": ["dvmvs_tpu/ops/pallas/cost_volume_vjp.py:251"],
+        "shape": {"B": TB, "V": 1, "C": TC, "H": TH, "W": TW, "P": P},
         "launches": bwd_launches,
         "max_abs_err": bwd_err,
         "ms": bwd_ms,
         "plain_ms": plain_bwd_ms,
+        "bound_ms": bwd_bound["bound_ms"],
+        "bound_by": bwd_bound["bound_by"],
+        "library_ms": None,
+        "share_of_bound": bwd_bound["bound_ms"] / bwd_ms,
+        "timer": TIMER,
+        "ms_single_launch": bwd_single_ms,
+        "single_launch_timer": SINGLE_LAUNCH_TIMER,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

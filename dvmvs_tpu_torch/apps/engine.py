@@ -23,7 +23,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from dvmvs_tpu.config import TestConfig
+from dvmvs_tpu_torch.config import TestConfig
 from dvmvs_tpu_torch.models.fusionnet import FusionNet, init_lstm_carry
 from dvmvs_tpu_torch.models.layers import init_parameters
 from dvmvs_tpu_torch.models.pairnet import PairNet, scale_intrinsics

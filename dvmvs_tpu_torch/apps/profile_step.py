@@ -1,7 +1,7 @@
 """Where the time of the online step goes on one GPU.
 
-Streams a synthetic room (``SynthScene`` of dvmvs_tpu/data/synthetic.py,
-NumPy only) through ``predict_stream`` at the test configuration and
+Streams a synthetic room (``SynthScene`` of data/synthetic.py, NumPy only)
+through ``predict_stream`` at the test configuration and
 reports:
 
   - the host wall time of ``encode_and_predict`` per keyframe, median and
@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import importlib.util
 import json
 import os
 import re
@@ -43,9 +42,9 @@ import time
 
 import numpy as np
 
-from dvmvs_tpu.config import TestConfig
+from dvmvs_tpu_torch.config import TestConfig
+from dvmvs_tpu_torch.data import synthetic as synth
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 MODULES = ("feature_extractor", "feature_shrinker", "cost_volume_encoder", "lstm_fusion",
            "cost_volume_decoder")
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -56,22 +55,11 @@ N_WARMUP_STEPS, N_TIMED_STEPS = 2, 5
 SWEEP_KERNELS = {"forward": "plane_sweep_kernel", "backward": "plane_sweep_bwd_kernel"}
 
 
-def _synthetic():
-    """dvmvs_tpu/data/synthetic.py, loaded by path: importing its package
-    would import OpenCV."""
-    spec = importlib.util.spec_from_file_location(
-        "synthetic_scene", os.path.join(ROOT, "dvmvs_tpu", "data", "synthetic.py"))
-    synth = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(synth)
-    return synth
-
-
 def synthetic_stream(cfg: TestConfig, n_frames: int):
     """(frames normalised for the network, camera-to-world poses, K float32)
     of a walk through SynthScene(0), 5 cm a step."""
     from dvmvs_tpu_torch.apps.run_testing_online import normalize_rgb
 
-    synth = _synthetic()
     scene = synth.SynthScene(0)
     poses = scene.trajectory(n_frames, step=0.05)
     K = synth.default_K(cfg.image_width, cfg.image_height)
@@ -85,7 +73,6 @@ def synthetic_train_batch(size: int, batch_size: int, length: int) -> dict:
     element b holds frames b .. b+length-1 (images normalised, depth in m)."""
     from dvmvs_tpu_torch.apps.run_testing_online import normalize_rgb
 
-    synth = _synthetic()
     scene = synth.SynthScene(0)
     poses = scene.trajectory(batch_size + length - 1).astype(np.float32)
     K = synth.default_K(size, size).astype(np.float32)
@@ -245,7 +232,7 @@ def profile_train(model_kind: str) -> dict:
     import torch
     from torch.profiler import ProfilerActivity
 
-    from dvmvs_tpu.config import TrainConfig
+    from dvmvs_tpu_torch.config import TrainConfig
     from dvmvs_tpu_torch.apps.run_training import make_model
     from dvmvs_tpu_torch.parallel.train import (FUSIONNET_STAGES, PAIRNET_STAGES,
                                                 make_optimizer, train_step)

@@ -8,8 +8,9 @@ keyframe.
 
   - ``predict_stream`` takes preprocessed frames from memory.
   - ``predict_scene`` and ``main`` read a scene directory (``images/*.png``,
-    ``depth/*.png``, ``poses.txt``, ``K.txt``); they import OpenCV-based
-    readers at call time.
+    ``depth/*.png``, ``poses.txt``, ``K.txt``) with the port's own PNG
+    reader (``data/io.py``, no OpenCV). Frames stored at the test size need
+    no resize; any other size needs cv2 (``data/preprocess.py``).
 
 Run: ``python -m dvmvs_tpu_torch.apps.run_testing_online --scene DIR``.
 """
@@ -23,8 +24,10 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from dvmvs_tpu.config import MEAN_RGB, SCALE_RGB, STD_RGB, TestConfig
 from dvmvs_tpu_torch.apps.engine import InferenceEngine
+from dvmvs_tpu_torch.config import MEAN_RGB, SCALE_RGB, STD_RGB, TestConfig
+from dvmvs_tpu_torch.data.io import load_depth_png, load_image, load_scene
+from dvmvs_tpu_torch.data.preprocess import PreprocessImage
 from dvmvs_tpu_torch.utils.keyframe_buffer import KeyframeBuffer
 from dvmvs_tpu_torch.utils.results import InferenceTimer, save_results
 
@@ -87,9 +90,6 @@ def predict_scene(engine: InferenceEngine, scene_path: str, cfg: TestConfig,
                   evaluate: bool = True, max_frames: Optional[int] = None):
     """Predict every keyframe of a scene directory. Returns (predictions,
     ground-truth depths of the predicted frames, or None)."""
-    from dvmvs_tpu.data.io import load_depth_png, load_image, load_scene
-    from dvmvs_tpu.data.preprocess import PreprocessImage
-
     scene = load_scene(scene_path)
     raw = (load_image(f) for f in scene.image_filenames[: len(scene.poses)])
     first = next(raw)

@@ -24,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from dvmvs_tpu.config import TrainConfig
+from dvmvs_tpu_torch.config import TrainConfig
 from dvmvs_tpu_torch.data.dataset import MVSSequenceDataset, batch_iterator, device_prefetch
 from dvmvs_tpu_torch.models.fusionnet import FusionNet
 from dvmvs_tpu_torch.models.layers import init_parameters

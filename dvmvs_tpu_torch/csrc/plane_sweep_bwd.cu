@@ -26,7 +26,8 @@
 // one contiguous run of C floats per tap (coalesced), and a tap costs one
 // 16-byte load and one 16-byte atomicAdd (sm_90 has float4 atomicAdd on
 // global memory). Each thread recomputes the forward's coordinates for every
-// (view, plane) with the forward's exact arithmetic, sums d_ref in registers
+// (view, plane) with the forward's own code (plane_sweep_common.cuh), so it
+// scatters to exactly the taps the forward read; it sums d_ref in registers
 // and writes it once: d_ref needs no atomics and is deterministic; d_meas is
 // summed by atomics in no fixed order. No band ladder and no span check: one
 // kernel closes K5 and K6. Shared-memory staging, TMA and wgmma are left out.
@@ -35,6 +36,8 @@
 
 #include <climits>
 #include <cstdint>
+
+#include "plane_sweep_common.cuh"
 
 namespace {
 
@@ -74,9 +77,8 @@ __global__ void plane_sweep_bwd_kernel(const float* __restrict__ ref,      // (B
 
   const float xf = (float)x;
   const float yf = (float)y;
-  // the forward's fold of the W/2 normaliser and align_corners=True
-  const float x_scale = (W - 1.0f) / W;
-  const float y_scale = (H - 1.0f) / H;
+  const float x_scale = plane_sweep::align_scale(W);
+  const float y_scale = plane_sweep::align_scale(H);
   const int64_t plane_stride = (int64_t)H * W;
   const float* g_px = g + (int64_t)b * P * plane_stride + (int64_t)y * W + x;
 
@@ -88,28 +90,15 @@ __global__ void plane_sweep_bwd_kernel(const float* __restrict__ ref,      // (B
     const float* meas_v = meas + view;
     float* d_meas_v = d_meas + view;
     for (int p = 0; p < P; ++p) {
-      const float* m = mats + (((int64_t)b * V + v) * P + p) * 9;
-      const float den = m[6] * xf + m[7] * yf + m[8] + 1e-8f;
-      const float xs = (m[0] * xf + m[1] * yf + m[2]) / den * x_scale;
-      const float ys = (m[3] * xf + m[4] * yf + m[5]) / den * y_scale;
-      // range test on the float coordinate before any conversion to int:
-      // behind the camera or near den == 0 the coordinates are huge, inf or
-      // NaN (which fails every comparison); out of range all taps are zero
-      if (!(xs > -1.0f && xs < (float)W && ys > -1.0f && ys < (float)H)) continue;
+      // the forward's taps (plane_sweep_common.cuh); out of range all are zero
+      const plane_sweep::Taps taps = plane_sweep::bilinear_taps(
+          mats + (((int64_t)b * V + v) * P + p) * 9, xf, yf, x_scale, y_scale, W, H);
+      if (!taps.in_range) continue;
       const float gp = __ldg(g_px + (int64_t)p * plane_stride) * scale;
-
-      const float x0f = floorf(xs);
-      const float y0f = floorf(ys);
-      const int x0 = (int)x0f;  // in [-1, W - 1]
-      const int y0 = (int)y0f;  // in [-1, H - 1]
-      const float wx1 = xs - x0f;
-      const float wy1 = ys - y0f;
-      const float wx0 = 1.0f - wx1;
-      const float wy0 = 1.0f - wy1;
-      const int tx[2] = {x0, x0 + 1};
-      const int ty[2] = {y0, y0 + 1};
-      const float wx[2] = {wx0, wx1};
-      const float wy[2] = {wy0, wy1};
+      const int tx[2] = {taps.x0, taps.x0 + 1};
+      const int ty[2] = {taps.y0, taps.y0 + 1};
+      const float wx[2] = {taps.wx0, taps.wx1};
+      const float wy[2] = {taps.wy0, taps.wy1};
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         if (ty[i] < 0 || ty[i] >= H) continue;

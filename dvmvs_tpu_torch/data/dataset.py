@@ -30,7 +30,7 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
-from dvmvs_tpu.config import MEAN_RGB, SCALE_RGB, STD_RGB, TrainConfig
+from dvmvs_tpu_torch.config import MEAN_RGB, SCALE_RGB, STD_RGB, TrainConfig
 from dvmvs_tpu_torch.data.crawler import crawl
 from dvmvs_tpu_torch.data.preprocess import PreprocessImage
 

@@ -1,0 +1,143 @@
+"""Scene file I/O for the canonical dataset layout without OpenCV
+(counterpart of dvmvs_tpu/data/io.py, which reads PNGs with cv2).
+
+Canonical scene (reference: README.md:88-100): ``images/*.png`` RGB,
+``depth/*.png`` uint16 millimeters, ``poses.txt`` flattened 4x4
+camera-to-world per line, ``K.txt`` 3x3 intrinsics.
+
+PNGs are decoded with ``zlib`` and NumPy alone (``read_png``): the IHDR,
+IDAT and IEND chunks (CRCs checked; other chunks skipped), the five scanline
+filters, 8-bit gray, RGB and RGBA and 16-bit (big-endian) gray, without
+interlacing. Anything else raises ``ValueError`` naming the file.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> channels: 0 gray, 2 RGB, 6 RGBA (palette and gray+alpha are not read)
+CHANNELS = {0: 1, 2: 3, 6: 4}
+
+
+def _unfilter(filtered: np.ndarray, filters: np.ndarray) -> np.ndarray:
+    """Undo the scanline filters. filtered (H, W, bpp) uint8 bytes, filters
+    (H,) filter types -> the image bytes (H, W, bpp) uint8.
+
+    Byte (r, x, k) depends on a = (r, x-1, k), b = (r-1, x, k) and c = (r-1,
+    x-1, k), zero outside the image; so the pixels of one anti-diagonal
+    r + x = d depend only on earlier diagonals, and each diagonal is decoded
+    at once whatever the rows' filters."""
+    H, W, bpp = filtered.shape
+    out = np.zeros((H + 1, W + 1, bpp), np.int16)  # one row and column of zeros in front
+    f = filtered.astype(np.int16)
+    for d in range(H + W - 1):
+        r = np.arange(max(0, d - W + 1), min(H - 1, d) + 1)
+        x = d - r
+        a, b, c = out[r + 1, x], out[r, x + 1], out[r, x]
+        kind = filters[r][:, None]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        pred = np.select([kind == 1, kind == 2, kind == 3, kind == 4],
+                         [a, b, (a + b) >> 1, paeth], 0)
+        out[r + 1, x + 1] = (f[r, x] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """A PNG as stored: (H, W) for gray, (H, W, 3) RGB or (H, W, 4) RGBA;
+    uint8, or uint16 for 16-bit gray."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    header, idat, pos = None, [], 8
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4 or \
+                struct.unpack(">I", crc)[0] != zlib.crc32(kind + body):
+            raise ValueError(f"{path}: corrupt {kind!r} chunk")
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError(f"{path}: no IHDR or IDAT chunk")
+    width, height, depth, colour, _, _, interlace = header
+    if interlace:
+        raise ValueError(f"{path}: interlaced PNGs are not supported")
+    if colour not in CHANNELS or depth not in (8, 16) or (depth == 16 and colour != 0):
+        raise ValueError(f"{path}: PNG colour type {colour} at {depth} bits is not supported "
+                         "(8-bit gray, RGB, RGBA and 16-bit gray are)")
+    channels = CHANNELS[colour]
+    bpp = channels * depth // 8
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != height * (width * bpp + 1):
+        raise ValueError(f"{path}: {raw.size} bytes of image data, want "
+                         f"{height * (width * bpp + 1)}")
+    rows = raw.reshape(height, width * bpp + 1)
+    filters = rows[:, 0]
+    if filters.max(initial=0) > 4:
+        raise ValueError(f"{path}: unknown scanline filter {filters.max()}")
+    image = _unfilter(rows[:, 1:].reshape(height, width, bpp), filters)
+    if depth == 16:
+        image = image.reshape(height, width * 2).view(">u2").astype(np.uint16)
+    image = image.reshape(height, width, channels)
+    return image[:, :, 0] if channels == 1 else image
+
+
+def load_image(path: str) -> np.ndarray:
+    """RGB float32 (H, W, 3), values 0..255 (as cv2.imread in colour mode,
+    then BGR to RGB: gray is repeated, alpha dropped, 16 bits cut to 8)."""
+    image = read_png(path)
+    if image.dtype == np.uint16:
+        image = (image >> 8).astype(np.uint8)
+    if image.ndim == 2:
+        image = np.repeat(image[:, :, None], 3, axis=2)
+    return image[:, :, :3].astype(np.float32)
+
+
+def load_depth_png(path: str, scaling: float = 1000.0) -> np.ndarray:
+    """uint16 millimeter PNG -> float32 meters."""
+    return read_png(path).astype(np.float32) / scaling
+
+
+@dataclass
+class Scene:
+    name: str
+    path: str
+    K: np.ndarray  # (3, 3)
+    poses: np.ndarray  # (N, 4, 4)
+    image_filenames: List[str]
+    depth_filenames: Optional[List[str]]
+
+
+def _pngs(directory: str) -> List[str]:
+    return sorted(os.path.join(directory, f) for f in os.listdir(directory) if f.endswith(".png"))
+
+
+def load_scene(scene_path: str) -> Scene:
+    K = np.loadtxt(os.path.join(scene_path, "K.txt")).astype(np.float32)
+    poses = np.fromfile(os.path.join(scene_path, "poses.txt"), dtype=float,
+                        sep="\n ").reshape(-1, 4, 4)
+    depth_dir = os.path.join(scene_path, "depth")
+    return Scene(
+        name=os.path.basename(os.path.normpath(scene_path)),
+        path=scene_path,
+        K=K,
+        poses=poses,
+        image_filenames=_pngs(os.path.join(scene_path, "images")),
+        depth_filenames=_pngs(depth_dir) if os.path.isdir(depth_dir) else None,
+    )

@@ -37,7 +37,8 @@ from dvmvs_tpu_torch.ops.geometry import inverse_pose, matmul_f32
 
 KERNELS = ("plane_sweep", "plane_sweep_bwd")
 
-# Launches of the CUDA kernels in this process (never the plain versions').
+# Launches of the CUDA kernels in this process (never the plain versions'):
+# one a backward call, and one a forward call of up to 51 views.
 launch_count = 0
 backward_launch_count = 0
 
@@ -112,17 +113,37 @@ def plane_sweep_backward_plain(ref, meas, mats, weights, g):
     return d_ref, d_meas
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(name: str):
-    """A kernel's C entry point, built and loaded once per process."""
+def bind(lib: ctypes.CDLL, name: str):
+    """The C entry point of kernel ``name`` in a loaded library, typed."""
     if name == "plane_sweep":
-        fn = cuda_build.load(name).plane_sweep_multiview
+        fn = lib.plane_sweep_multiview
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     else:
-        fn = cuda_build.load(name).plane_sweep_backward
+        fn = lib.plane_sweep_backward
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _library(name: str) -> ctypes.CDLL:
+    """A kernel's library, built and loaded once per process."""
+    return cuda_build.load(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """A kernel's C entry point."""
+    return bind(_library(name), name)
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_launches(V: int) -> int:
+    """Launches the forward entry point makes for V views (it takes as many
+    views in one launch as a block's shared memory holds)."""
+    fn = _library("plane_sweep").plane_sweep_launches
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(V)
 
 
 def build_kernels() -> dict:
@@ -161,22 +182,28 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def launch_forward(fn, ref, meas, mats, weights, dot_product: bool = True):
+    """Launch a forward entry point (``bind``) on checked CUDA tensors on
+    the current stream; returns the (B, P, H, W) result."""
+    B, H, W, C = ref.shape
+    V, P = mats.shape[1:3]
+    out = torch.empty((B, P, H, W), dtype=torch.float32, device=ref.device)
+    with torch.cuda.device(ref.device):
+        err = fn(ref.data_ptr(), meas.data_ptr(), mats.data_ptr(), weights.data_ptr(),
+                 out.data_ptr(), B, V, P, H, W, C, int(bool(dot_product)), _stream(ref.device))
+    if err != 0:
+        raise RuntimeError(f"plane sweep kernel launch failed: cudaError {err}")
+    return out
+
+
 def _sweep(ref, meas, mats, weights, dot_product: bool):
     """The forward: plain version on the CPU, the kernel on the card."""
     global launch_count
     _check(ref, meas, mats, weights)
     if ref.device.type == "cpu":
         return plane_sweep_multiview_plain(ref, meas, mats, weights, dot_product)
-    B, H, W, C = ref.shape
-    V, P = mats.shape[1:3]
-    out = torch.empty((B, P, H, W), dtype=torch.float32, device=ref.device)
-    fn = _entry("plane_sweep")
-    with torch.cuda.device(ref.device):
-        err = fn(ref.data_ptr(), meas.data_ptr(), mats.data_ptr(), weights.data_ptr(),
-                 out.data_ptr(), B, V, P, H, W, C, int(bool(dot_product)), _stream(ref.device))
-    if err != 0:
-        raise RuntimeError(f"plane sweep kernel launch failed: cudaError {err}")
-    launch_count += 1
+    out = launch_forward(_entry("plane_sweep"), ref, meas, mats, weights, dot_product)
+    launch_count += _forward_launches(mats.shape[1])
     return out
 
 

@@ -1,0 +1,145 @@
+"""Inputs, bound and timers for measuring the plane-sweep kernels on a GPU.
+
+Shared by ``apps/bench_plane_sweep.py``, ``chip_smoke.py`` and the card
+tests: seeded sweep inputs at a given shape (``sweep_case``), the least time
+the card could take for a call (``sweep_bound``), and two CUDA-event timers:
+``time_ms`` (calls queued behind a spin kernel, so a kernel's time excludes
+the host's launch overhead) and ``single_launch_ms`` (each call timed alone
+as the host issues it, which includes that overhead where it is longer than
+the kernel).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from dvmvs_tpu_torch.ops.cost_volume import inverse_depth_planes
+from dvmvs_tpu_torch.ops.plane_sweep import build_plane_matrices
+
+TYPICAL = ((2, 3, 1), (0.12, 0.03, 0.02))  # euler (degrees) and translation of view 0
+OTHER_VIEW = ((1, 2, 0.5), (0.1, 0.02, 0.0))
+# NVIDIA H100 SXM5 data sheet, dense: HBM3 bytes/s, float32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# flops per channel of one in-range (pixel, plane, view) sample: forward, 4
+# FMA to interpolate and 1 for the dot; backward, 4 FMA into d_ref, 4
+# multiplies and 4 atomic adds into d_meas
+FWD_FLOPS, BWD_FLOPS = 10, 16
+SPIN_CLOCK_HZ = 1.98e9  # H100 SXM5 boost clock: cycles of time_ms's spin kernel per second
+TIMER = "median of 30 CUDA-event timings of 10 calls queued behind a spin kernel, per call"
+SINGLE_LAUNCH_TIMER = "median of 30 CUDA-event timings of one call each, as the host issues it"
+
+
+def pose(rx, ry, rz, t):
+    """Camera-to-world pose from xyz Euler angles in degrees."""
+    ax, ay, az = np.radians([rx, ry, rz])
+    Rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)], [0, np.sin(ax), np.cos(ax)]])
+    Ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0], [-np.sin(ay), 0, np.cos(ay)]])
+    Rz = np.array([[np.cos(az), -np.sin(az), 0], [np.sin(az), np.cos(az), 0], [0, 0, 1]])
+    out = np.eye(4)
+    out[:3, :3] = Rz @ Ry @ Rx  # extrinsic xyz, as scipy's from_euler("xyz")
+    out[:3, 3] = t
+    return out.astype(np.float32)
+
+
+def sweep_case(shape, euler=TYPICAL[0], t=TYPICAL[1], weights=None, seed=0, device="cuda",
+               focal=0.95):
+    """Seeded inputs of the forward at ``shape`` = (B, V, C, H, W, P): view 0
+    at (euler, t), view 1 at OTHER_VIEW, intrinsics ``focal * W``, P
+    inverse-depth planes in [0.25, 20] m; every batch element alike.
+    Returns ref, meas, mats, weights (default 1 / V each)."""
+    B, V, C, H, W, P = shape
+    rs = np.random.RandomState(seed)
+    ref = torch.from_numpy(rs.randn(B, H, W, C).astype(np.float32)).to(device)
+    meas = torch.from_numpy(rs.randn(B, V, H, W, C).astype(np.float32)).to(device)
+    K = torch.tensor([[focal * W, 0, W / 2], [0, focal * W, H / 2], [0, 0, 1]], device=device)
+    poses = np.stack([pose(*euler, t), pose(*OTHER_VIEW[0], OTHER_VIEW[1])][:V])
+    mats = build_plane_matrices(torch.eye(4, device=device), torch.from_numpy(poses).to(device),
+                                K, inverse_depth_planes(0.25, 20.0, P, device))
+    w = torch.full((B, V), 1.0 / V) if weights is None else torch.tensor([weights] * B)
+    return (ref, meas, mats[None].expand(B, -1, -1, -1, -1).contiguous(),
+            w.to(device=device, dtype=torch.float32))
+
+
+def in_range_samples(mats, weights, H: int, W: int) -> int:
+    """(b, v, p, y, x) samples of views with a non-zero weight whose bilinear
+    footprint touches the image: the samples the kernels do work for."""
+    x = torch.arange(W, dtype=torch.float32, device=mats.device)[None, :]
+    y = torch.arange(H, dtype=torch.float32, device=mats.device)[:, None]
+    total = 0
+    for p in range(mats.shape[2]):
+        m = mats[:, :, p, :, :, None, None]  # (B, V, 3, 3, 1, 1)
+        den = m[:, :, 2, 0] * x + m[:, :, 2, 1] * y + m[:, :, 2, 2] + 1e-8
+        xs = (m[:, :, 0, 0] * x + m[:, :, 0, 1] * y + m[:, :, 0, 2]) / den * ((W - 1) / W)
+        ys = (m[:, :, 1, 0] * x + m[:, :, 1, 1] * y + m[:, :, 1, 2]) / den * ((H - 1) / H)
+        inside = (xs > -1) & (xs < W) & (ys > -1) & (ys < H) & (weights != 0)[:, :, None, None]
+        total += int(inside.sum().item())
+    return total
+
+
+def _bound(n_bytes: int, flops: int) -> dict:
+    byte_ms, op_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(byte_ms, op_ms), "bound_by": "bytes" if byte_ms >= op_ms else
+            "operations", "bytes": n_bytes, "flops": flops}
+
+
+def sweep_bound(ref, meas, mats, weights, backward: bool = False) -> dict:
+    """The least time of one forward (or backward) call on these inputs:
+    every input read once and every output written once over the HBM rate,
+    and the flops of the in-range samples over the float32 rate; views of
+    weight 0 are neither read nor computed."""
+    B, H, W, C = ref.shape
+    V, P = mats.shape[1:3]
+    views = int((weights != 0).sum().item())
+    pixels = B * H * W
+    n_bytes = 4 * (pixels * C + views * H * W * C + mats.numel() + weights.numel() + B * P * H * W)
+    if backward:  # the cotangent was counted as the output; add d_ref and d_meas
+        n_bytes += 4 * (pixels * C + views * H * W * C)
+    samples = in_range_samples(mats, weights, H, W)
+    return _bound(n_bytes, samples * C * (BWD_FLOPS if backward else FWD_FLOPS))
+
+
+def time_ms(fn, n_warmup=5, n=30, reps=10):
+    """Median over ``n`` CUDA-event timings of ``reps`` back-to-back calls,
+    per call. A spin kernel queued before the start event holds the card
+    while the host queues the calls (for twice the host's time of the last
+    warm-up call), so a kernel's time excludes the host's launch overhead,
+    even where that overhead is longer than the kernel."""
+    for _ in range(n_warmup):
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+    spin_cycles = int(SPIN_CLOCK_HZ * min(2 * reps * host_s + 1e-3, 0.1))
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def single_launch_ms(fn, n_warmup=5, n=30):
+    """Median over ``n`` CUDA-event timings of one call each, recorded as the
+    host issues it: where the host's launch takes longer than the kernel,
+    this is the host's time."""
+    for _ in range(n_warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))

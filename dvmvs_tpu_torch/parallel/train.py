@@ -18,7 +18,7 @@ from typing import Dict, List, Sequence
 
 import torch
 
-from dvmvs_tpu.config import MEAN_RGB, SCALE_RGB, STD_RGB
+from dvmvs_tpu_torch.config import MEAN_RGB, SCALE_RGB, STD_RGB
 from dvmvs_tpu_torch.models.training_heads import fusionnet_train_sequence, pairnet_train_pair
 from dvmvs_tpu_torch.utils.losses import multi_scale_loss
 

@@ -1,0 +1,85 @@
+"""The arithmetic of ops/sweep_measure.py and apps/bench_plane_sweep.py, on
+the CPU: the bound counts the bytes every input and output needs once and
+the flops of the in-range samples only, and the ptxas report pairs each
+kernel with its registers and spills."""
+
+import numpy as np
+import pytest
+import torch
+
+from dvmvs_tpu_torch.apps import bench_plane_sweep as bench
+from dvmvs_tpu_torch.ops import sweep_measure as measure
+
+SHAPE = (2, 2, 8, 12, 16, 5)  # B, V, C, H, W, P
+
+
+def test_identity_samples_are_all_in_range():
+    B, V, C, H, W, P = SHAPE
+    ref, meas, mats, w = measure.sweep_case(SHAPE, device="cpu")
+    identity = torch.eye(3).expand_as(mats).contiguous()
+    assert measure.in_range_samples(identity, w, H, W) == B * V * P * H * W
+    bound = measure.sweep_bound(ref, meas, identity, w)
+    assert bound["flops"] == B * V * P * H * W * C * measure.FWD_FLOPS
+    assert bound["bytes"] == 4 * (B * H * W * C + B * V * H * W * C + mats.numel() + w.numel()
+                                  + B * P * H * W)
+    assert bound["bound_ms"] == pytest.approx(max(
+        bound["bytes"] / measure.PEAK_BYTES_PER_S, bound["flops"] / measure.PEAK_F32_FLOPS) * 1e3)
+
+
+def test_masked_views_and_samples_off_the_image_cost_nothing():
+    B, V, C, H, W, P = SHAPE
+    ref, meas, mats, w = measure.sweep_case(SHAPE, device="cpu")
+    identity = torch.eye(3).expand_as(mats).contiguous()
+    masked = torch.tensor([[1.0, 0.0]] * B)
+    assert measure.in_range_samples(identity, masked, H, W) == B * P * H * W
+    # a shift by W pixels moves every sample of view 0 off the image
+    shifted = identity.clone()
+    shifted[:, 0, :, 0, 2] = 2.0 * W
+    assert measure.in_range_samples(shifted, w, H, W) == B * P * H * W
+    forward = measure.sweep_bound(ref, meas, identity, masked)
+    backward = measure.sweep_bound(ref, meas, identity, masked, backward=True)
+    assert forward["flops"] == B * P * H * W * C * measure.FWD_FLOPS
+    assert backward["flops"] == B * P * H * W * C * measure.BWD_FLOPS
+    assert backward["bytes"] - forward["bytes"] == 4 * (B * H * W * C + B * H * W * C)
+
+
+def test_typical_geometry_leaves_some_samples_off_the_image():
+    B, V, C, H, W, P = SHAPE
+    _, _, mats, w = measure.sweep_case(SHAPE, device="cpu")
+    n = measure.in_range_samples(mats, w, H, W)
+    assert 0.5 * B * V * P * H * W < n < B * V * P * H * W
+
+
+def test_ptxas_report_pairs_kernels_with_registers_and_spills():
+    fwd = ("_ZN47_GLOBAL__N__5b31680f_14_plane_sweep_cu_45ba030518plane_sweep_kernel"
+           "ILi4ELi2ELb1EEEvPKfS2_S2_S2_Pfiiiiiif")
+    bwd = "_ZN12_GLOBAL__N_122plane_sweep_bwd_kernelILb0EEEvPKfS2_S2_S2_S2_PfS3_iiiiif"
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {fwd}",
+        "    16 bytes stack frame, 16 bytes spill stores, 48 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers, 2048 bytes smem",
+        f"ptxas info    : Compiling entry function '{bwd}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {bwd}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, 388 bytes cmem[0]",
+        "ptxas info    : Function properties for _Z5otherv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 8 registers",
+    ])
+    assert bench.ptxas_report(log) == {
+        "plane_sweep_kernel<4,2,1>": "64 registers, 16 bytes spilled",
+        "plane_sweep_bwd_kernel<0>": "40 registers, 0 bytes spilled",
+        "_Z5otherv": "8 registers, 0 bytes spilled"}
+    assert bench.ptxas_report("") == {}
+
+
+def test_pose_matches_scipy():
+    from scipy.spatial.transform import Rotation
+
+    got = measure.pose(10, -20, 35, (0.1, 0.2, 0.3))
+    want = Rotation.from_euler("xyz", [10, -20, 35], degrees=True).as_matrix()
+    np.testing.assert_allclose(got[:3, :3], want, atol=1e-6)
+    np.testing.assert_array_equal(got[:3, 3], np.float32([0.1, 0.2, 0.3]))
+    np.testing.assert_array_equal(got[3], [0, 0, 0, 1])

@@ -16,7 +16,7 @@ import torch
 from scipy.spatial.transform import Rotation
 
 import chip_smoke as cs
-from dvmvs_tpu import config
+from dvmvs_tpu_torch import config
 from dvmvs_tpu_torch.ops import plane_sweep as tps
 from dvmvs_tpu_torch.ops.cost_volume import inverse_depth_planes
 
@@ -62,6 +62,7 @@ def _case(seed, euler, t, c, device, h=H, w=W):
     ([0, 120, 0], [0.1, 0.0, 2.0], 32, [0.5, 0.5], True),     # behind the camera
     ([2, 3, 1], [0.12, 0.03, 0.02], 32, [1.0, 0.0], True),    # masked view
     ([2, 3, 1], [0.12, 0.03, 0.02], 30, [0.5, 0.5], True),    # C = 30
+    ([2, 3, 1], [0.12, 0.03, 0.02], 64, [0.5, 0.5], True),    # C = 64: two loads a lane
     ([2, 3, 1], [0.12, 0.03, 0.02], 32, [0.5, 0.5], False),   # L1
     ([0, 120, 0], [0.1, 0.0, 2.0], 30, [1.0, 0.0], False),    # L1, C=30, masked
 ])
@@ -78,16 +79,46 @@ def test_kernel_matches_plain(cuda_device, euler, t, c, weights, dot_product):
     assert err <= ATOL[dot_product]
 
 
-def test_kernel_at_640x480_frames(cuda_device):
+@pytest.mark.parametrize("c", [32, 64])
+def test_kernel_at_640x480_frames(cuda_device, c):
     """Half-resolution features of 640x480 frames: the size the TPU kernels,
     which keep whole measurement maps in VMEM, never covered."""
-    ref, meas, mats = _case(2, [2, 3, 1], [0.12, 0.03, 0.02], 32, cuda_device, 240, 320)
+    ref, meas, mats = _case(2, [2, 3, 1], [0.12, 0.03, 0.02], c, cuda_device, 240, 320)
     w = torch.full((1, V), 0.5, device=cuda_device)
     want = tps.plane_sweep_multiview_plain(ref, meas, mats, w)
     got = tps.plane_sweep_multiview(ref, meas, mats, w)
     torch.cuda.synchronize()
     assert got.shape == (1, P, 240, 320)
     assert (got - want).abs().max().item() <= ATOL[True]
+
+
+@pytest.mark.parametrize("shape", [(3, 1, 32, 37, 45, 11), (2, 5, 8, 16, 70, 3),
+                                   (1, 1, 132, 20, 33, 9), (1, 3, 13, 9, 40, 20),
+                                   (2, 120, 8, 9, 33, 10)],
+                         ids=["ragged_tiles", "many_views", "c132", "c13", "views_over_launches"])
+def test_kernel_on_ragged_shapes(cuda_device, shape):
+    """Tiles and plane chunks that the image and the planes do not fill, more
+    views than the online path has (and more than one launch's shared memory
+    holds, summed over three launches, each counted), and channel counts that
+    leave a lane's last load short or take the loop over any C."""
+    from dvmvs_tpu_torch.ops.sweep_measure import sweep_case
+
+    B, V_, C, H_, W_, P_ = shape
+    ref, meas, mats, w = sweep_case((B, min(V_, 2), C, H_, W_, P_), device=cuda_device)
+    if V_ > 2:  # more views: repeat the two with other weights, summing to 1
+        meas = meas.repeat(1, V_, 1, 1, 1)[:, :V_].contiguous()
+        mats = mats.repeat(1, V_, 1, 1, 1)[:, :V_].contiguous()
+        w = torch.linspace(0.0, 1.0, V_, device=cuda_device)
+        w = (w / w.sum()).repeat(B, 1)
+    for dot in (True, False):
+        want = tps.plane_sweep_multiview_plain(ref, meas, mats, w, dot)
+        before = tps.launch_count
+        got = tps.plane_sweep_multiview(ref, meas, mats, w, dot)
+        torch.cuda.synchronize()
+        assert tps.launch_count - before == -(-V_ // 51)  # 51 views fit one launch
+        assert got.shape == (B, P_, H_, W_)
+        # the L1 cost sums over the channels: its limit grows with C past 32
+        assert (got - want).abs().max().item() <= ATOL[dot] * (max(C / 32, 1) if not dot else 1)
 
 
 def test_kernel_takes_views_at_unaligned_offsets(cuda_device):

@@ -139,3 +139,149 @@ def test_device_prefetch_on_cpu_and_early_close(corpus):
 
     with pytest.raises(RuntimeError, match="decode failed"):
         list(tdataset.host_prefetch(failing()))
+
+
+# --- the synthetic scene and the PNG reader (no OpenCV in the port) ---
+
+
+@pytest.mark.parametrize("seed", [0, 11])
+def test_synthetic_scene_matches_jax(seed):
+    """The port's NumPy copy renders bit-identical frames and walks."""
+    from dvmvs_tpu.data import synthetic as jsynth
+    from dvmvs_tpu_torch.data import synthetic as tsynth
+
+    want_scene, got_scene = jsynth.SynthScene(seed), tsynth.SynthScene(seed)
+    want_poses, got_poses = want_scene.trajectory(6), got_scene.trajectory(6)
+    np.testing.assert_array_equal(got_poses, want_poses)
+    K = tsynth.default_K(SIZE, SIZE)
+    np.testing.assert_array_equal(K, jsynth.default_K(SIZE, SIZE))
+    for i in (0, 5):
+        for got, want in zip(got_scene.render(got_poses[i], K, SIZE, SIZE),
+                             want_scene.render(want_poses[i], K, SIZE, SIZE)):
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def encode_png(image: np.ndarray, filters, interlace: int = 0) -> bytes:
+    """A PNG of ``image`` ((H, W) gray or (H, W, 3|4); uint8, or uint16 gray)
+    whose row r uses scanline filter filters[r % len(filters)]."""
+    import struct
+    import zlib
+
+    h, w = image.shape[:2]
+    channels = 1 if image.ndim == 2 else image.shape[2]
+    depth = 16 if image.dtype == np.uint16 else 8
+    data = image.astype(">u2") if depth == 16 else image
+    pixels = np.frombuffer(data.tobytes(), np.uint8).reshape(h, w, -1).astype(np.int32)
+    prior = np.zeros_like(pixels[0])
+    rows = []
+    for r in range(h):
+        kind = filters[r % len(filters)]
+        cur = pixels[r]
+        a = np.concatenate([np.zeros_like(cur[:1]), cur[:-1]])
+        c = np.concatenate([np.zeros_like(prior[:1]), prior[:-1]])
+        b = prior
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        pred = [0 * a, a, b, (a + b) // 2, paeth][kind]
+        rows.append(bytes([kind]) + ((cur - pred) % 256).astype(np.uint8).tobytes())
+        prior = cur
+    header = struct.pack(">IIBBBBB", w, h, depth, {1: 0, 3: 2, 4: 6}[channels], 0, 0, interlace)
+    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header) + _chunk(b"tEXt", b"note\x00x")
+            + _chunk(b"IDAT", zlib.compress(b"".join(rows))) + _chunk(b"IEND", b""))
+
+
+PNG_IMAGES = {
+    "rgb8": lambda rs: rs.randint(0, 256, (9, 13, 3)).astype(np.uint8),
+    "rgba8": lambda rs: rs.randint(0, 256, (9, 13, 4)).astype(np.uint8),
+    "gray8": lambda rs: rs.randint(0, 256, (9, 13)).astype(np.uint8),
+    "gray16": lambda rs: rs.randint(0, 65536, (9, 13)).astype(np.uint16),
+}
+
+
+@pytest.mark.parametrize("kind", list(PNG_IMAGES))
+@pytest.mark.parametrize("filters", [[0], [1], [2], [3], [4], [4, 0, 3, 1, 2]],
+                         ids=["none", "sub", "up", "average", "paeth", "mixed"])
+def test_png_reader_undoes_each_filter(tmp_path, kind, filters):
+    import cv2
+
+    from dvmvs_tpu_torch.data import io as tio
+
+    image = PNG_IMAGES[kind](np.random.RandomState(len(filters) * 7 + filters[0]))
+    path = tmp_path / f"{kind}.png"
+    path.write_bytes(encode_png(image, filters))
+    got = tio.read_png(str(path))
+    assert got.dtype == image.dtype
+    np.testing.assert_array_equal(got, image)
+    # cv2 reads the same file to the same array (BGR order aside)
+    want = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    if want.ndim == 3:
+        want = want[:, :, [2, 1, 0, 3][:want.shape[2]]]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_png_reader_matches_cv2_written_frames(tmp_path):
+    """8-bit RGB frames and 16-bit depth maps as cv2 writes them (the scene
+    layout's images/ and depth/), read by the port and by the JAX package."""
+    import cv2
+
+    from dvmvs_tpu.data import io as jio
+    from dvmvs_tpu_torch.data import io as tio
+
+    rs = np.random.RandomState(4)
+    smooth = cv2.GaussianBlur(rs.randint(0, 256, (48, 80, 3)).astype(np.uint8), (7, 7), 2)
+    for i, rgb in enumerate((rs.randint(0, 256, (48, 80, 3)).astype(np.uint8), smooth)):
+        path = str(tmp_path / f"rgb{i}.png")
+        cv2.imwrite(path, cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+        got = tio.load_image(path)
+        assert got.dtype == np.float32 and got.shape == (48, 80, 3)
+        np.testing.assert_array_equal(got, jio.load_image(path))
+        np.testing.assert_array_equal(tio.read_png(path), rgb)
+    depth_mm = rs.uniform(300, 12000, (48, 80)).astype(np.uint16)
+    path = str(tmp_path / "depth.png")
+    cv2.imwrite(path, depth_mm)
+    np.testing.assert_array_equal(tio.load_depth_png(path), jio.load_depth_png(path))
+    np.testing.assert_array_equal(tio.read_png(path), depth_mm)
+
+
+def test_png_reader_refuses_what_it_cannot_read(tmp_path):
+    from dvmvs_tpu_torch.data import io as tio
+
+    image = PNG_IMAGES["rgb8"](np.random.RandomState(0))
+    interlaced = tmp_path / "interlaced.png"
+    interlaced.write_bytes(encode_png(image, [0], interlace=1))
+    with pytest.raises(ValueError, match="interlaced.png: interlaced"):
+        tio.read_png(str(interlaced))
+    corrupt = bytearray(encode_png(image, [0]))
+    corrupt[40] ^= 0xFF  # a byte inside the tEXt chunk
+    (tmp_path / "corrupt.png").write_bytes(bytes(corrupt))
+    with pytest.raises(ValueError, match="corrupt.png: corrupt"):
+        tio.read_png(str(tmp_path / "corrupt.png"))
+    (tmp_path / "text.png").write_bytes(b"not a png")
+    with pytest.raises(ValueError, match="text.png: not a PNG"):
+        tio.read_png(str(tmp_path / "text.png"))
+
+
+def test_load_scene_matches_jax(tmp_path):
+    from dvmvs_tpu.data import io as jio
+    from dvmvs_tpu_torch.data import io as tio
+
+    (tmp_path / "images").mkdir()
+    for i in (2, 0, 1):
+        (tmp_path / "images" / f"{i:05d}.png").write_bytes(b"")
+    poses = np.stack([np.eye(4) + 0.01 * i for i in range(3)])
+    np.savetxt(tmp_path / "poses.txt", poses.reshape(3, 16))
+    np.savetxt(tmp_path / "K.txt", np.array([[50.0, 0, 32], [0, 50.0, 24], [0, 0, 1]]))
+    got, want = tio.load_scene(str(tmp_path)), jio.load_scene(str(tmp_path))
+    assert got.image_filenames == want.image_filenames and got.depth_filenames is None
+    assert want.depth_filenames is None and got.name == want.name
+    np.testing.assert_array_equal(got.K, want.K)
+    np.testing.assert_array_equal(got.poses, want.poses)

@@ -1,11 +1,14 @@
-"""Package hygiene of dvmvs_tpu_torch: it imports neither jax nor OpenCV,
-and of the JAX package only the jax-free config; its kernel build reports
-compiler failures and builds all sources at once, and chip_smoke.py refuses
-to run without a GPU.
+"""Package hygiene of dvmvs_tpu_torch: it imports neither jax nor OpenCV
+nor any module of the JAX package, and neither it nor chip_smoke.py names
+one in an import or a path; its kernel build reports compiler failures,
+builds all sources at once and rebuilds when an included header changes,
+and chip_smoke.py refuses to run without a GPU.
 """
 
+import ast
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -27,10 +30,8 @@ def test_port_imports_no_jax_or_cv2():
                                                        "dvmvs_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        # dvmvs_tpu.config is jax-free; its other subpackages import jax or cv2
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2")
-                     or m.startswith("dvmvs_tpu.") and m != "dvmvs_tpu.config")
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "dvmvs_tpu"))
         print(json.dumps({"names": names, "bad": bad}))
     """)
     out = subprocess.run([sys.executable, "-c", "import json\n" + code], cwd=ROOT,
@@ -44,7 +45,72 @@ def test_port_imports_no_jax_or_cv2():
 TRAINING_MODULES = {f"dvmvs_tpu_torch.{m}" for m in (
     "apps.run_training", "parallel.train", "models.training_heads", "utils.losses",
     "utils.checkpoint", "utils.run_logging", "data.crawler", "data.preprocess",
-    "data.dataset")}
+    "data.dataset", "config", "data.io", "data.synthetic")}
+
+# a string that names the JAX package as a module or a path to one of its files
+# (a "file:line" reference in a report is neither)
+JAX_PACKAGE_NAME = re.compile(r"^dvmvs_tpu(\.[\w.]+)?$|^dvmvs_tpu/[\w/]*(\.py)?$")
+
+
+def jax_package_references(source: str) -> list:
+    """Imports of dvmvs_tpu or dvmvs_tpu.* in a Python source, and string
+    constants (docstrings aside) that name it as a module or a path."""
+    tree = ast.parse(source)
+    docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                  if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                       ast.AsyncFunctionDef))
+                  and node.body and isinstance(node.body[0], ast.Expr)
+                  and isinstance(node.body[0].value, ast.Constant)}
+    found = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docstrings and JAX_PACKAGE_NAME.match(node.value):
+            found.append(f"line {node.lineno}: {node.value!r}")
+        found += [f"line {node.lineno}: import {n}" for n in names
+                  if n == "dvmvs_tpu" or n.startswith("dvmvs_tpu.")]
+    return found
+
+
+def _port_sources():
+    package = os.path.join(ROOT, "dvmvs_tpu_torch")
+    paths = [os.path.join(d, f) for d, _, files in os.walk(package) for f in files
+             if f.endswith(".py")]
+    return sorted(paths) + [os.path.join(ROOT, "chip_smoke.py")]
+
+
+def test_port_sources_name_no_module_or_path_of_the_jax_package():
+    """chip_smoke.py imports inside main(), so importing it proves nothing:
+    the sources of the port and of chip_smoke.py are read instead."""
+    sources = _port_sources()
+    assert len(sources) >= 40
+    found = {os.path.relpath(p, ROOT): jax_package_references(open(p).read()) for p in sources}
+    assert {p: refs for p, refs in found.items() if refs} == {}
+
+
+@pytest.mark.parametrize("snippet", [
+    "import dvmvs_tpu",
+    "import dvmvs_tpu.config as c",
+    "from dvmvs_tpu.config import TestConfig",
+    "from dvmvs_tpu import config",
+    "def f():\n    from dvmvs_tpu.data.io import load_image",
+    "spec = spec_from_file_location('s', os.path.join(ROOT, 'dvmvs_tpu', 'data', 'synthetic.py'))",
+    "exec(open('dvmvs_tpu/data/synthetic.py').read())",
+    "importlib.import_module('dvmvs_tpu.config')",
+])
+def test_the_source_scan_finds_references(snippet):
+    assert jax_package_references(snippet)
+
+
+def test_the_source_scan_passes_docstrings_and_reports():
+    source = ('"""Counterpart of dvmvs_tpu/data/io.py."""\n'
+              'import dvmvs_tpu_torch.config\n'
+              'REPLACES = "dvmvs_tpu/ops/pallas/cost_volume_kernel.py:274"\n')
+    assert jax_package_references(source) == []
 
 
 def _fake_nvcc(tmp_path, body):
@@ -92,6 +158,37 @@ def test_kernels_build_all_at_once(tmp_path, monkeypatch):
     with pytest.raises(cuda_build.KernelBuildError, match="plane_sweep_bwd.cu"):
         cuda_build.build_all(plane_sweep.KERNELS)
     assert [p.name for p in (tmp_path / "other").rglob("*.so")] == ["libplane_sweep.so"]
+
+
+def test_editing_the_shared_header_rebuilds_both_kernels(tmp_path, monkeypatch):
+    """library_path hashes the headers a source includes: an edit of
+    csrc/plane_sweep_common.cuh gives both kernels new libraries."""
+    from dvmvs_tpu_torch.ops import plane_sweep
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    monkeypatch.setattr(cuda_build, "BUILD_ROOT", tmp_path / "build")
+    nvcc = _fake_nvcc(tmp_path, 'while [ "$1" != "-o" ]; do shift; done\ntouch "$2"\necho built\n')
+    monkeypatch.setattr(cuda_build, "find_nvcc", lambda: nvcc)
+    for name in plane_sweep.KERNELS:
+        assert '#include "plane_sweep_common.cuh"' in (csrc / f"{name}.cu").read_text()
+    before = {name: cuda_build.library_path(name) for name in plane_sweep.KERNELS}
+    assert all(log for _, log in cuda_build.build_all(plane_sweep.KERNELS).values())
+    assert all(log == "" for _, log in cuda_build.build_all(plane_sweep.KERNELS).values())
+
+    header = csrc / "plane_sweep_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: cuda_build.library_path(name) for name in plane_sweep.KERNELS}
+    assert all(after[name] != before[name] for name in plane_sweep.KERNELS)
+    rebuilt = cuda_build.build_all(plane_sweep.KERNELS)
+    assert all(lib == after[name] and "built" in log for name, (lib, log) in rebuilt.items())
+    # another source of a kernel (an earlier version, timed beside it) gets a
+    # library of its own
+    earlier = tmp_path / "earlier.cu"
+    earlier.write_text((csrc / "plane_sweep.cu").read_text() + "\n// earlier\n")
+    assert cuda_build.library_path(("plane_sweep", earlier)) not in after.values()
+    assert cuda_build.library_path(("plane_sweep", csrc / "plane_sweep.cu")) == after["plane_sweep"]
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
