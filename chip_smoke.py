@@ -13,11 +13,14 @@ backward, one nvcc each, in parallel) and drives both paths of the port:
     seeded random weights, and agreement with the same engine on the CPU;
   - training: the forward kernel with one view (K3/K4) and the backward
     kernel (K5/K6) against the plain version and autograd through it at the
-    training shape, their timing, ``run_training.main`` on a synthetic
-    256x256 corpus (fusionnet B=4 S=8 through all three stages with
-    validation, then pairnet B=14, then one more fusionnet epoch resumed
-    from the first run's state), a short overfit, and one train step on the
-    card against the same step on the CPU.
+    training shape and around it (C=64, C=13, an unaligned meas, a ragged
+    size, a wide motion whose taps outgrow the backward's bins, a motion 1 m
+    back that overfills them, the online shape with a masked view, 5 views;
+    d_ref bit-identical over two calls), their timing, ``run_training.main``
+    on a synthetic 256x256 corpus (fusionnet B=4 S=8 through all three
+    stages with validation, then pairnet B=14, then one more fusionnet epoch
+    resumed from the first run's state), a short overfit, and one train step
+    on the card against the same step on the CPU.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. Each phase prints its lines; any failure raises, so the exit code is
@@ -92,36 +95,67 @@ def lap(state):
     return dt
 
 
-def train_case(torch, ps, seed, geometries, c, device):
-    """Training-shape single-view sweep inputs, one geometry per batch
-    element: ref (B,H,W,C), meas (B,1,H,W,C), mats (B,1,P,3,3), weights 1,
-    and a cotangent (B,P,H,W)."""
+LATERAL, TYPICAL = ((0, 0, 0), (0.12, 0.0, 0.0)), ((2, 3, 1), (0.12, 0.03, 0.02))
+ROLL_35, YAW_120 = ((0, 0, 35), (0.1, 0.0, 0.0)), ((0, 120, 0), (0.1, 0.0, 2.0))
+# 1 m across and 0.5 m up: the taps of a tile's 8-plane chunk spread over
+# more source pixels than the backward kernel bins (about half the chunks);
+# 1 m back: the image shrinks, and more samples fall on one source pixel than
+# a bin holds
+WIDE, BACK = ((0, 0, 0), (1.0, 0.5, 0.0)), ((0, 0, 0), (0.0, 0.0, -1.0))
+
+
+def train_case(torch, ps, seed, geometries, c, device, hw=(TH, TW), weights=(1.0,),
+               offset=False):
+    """Backward inputs at the training shape unless told otherwise, one
+    geometry (euler, t) per batch element: ref (B,H,W,C), meas (B,V,H,W,C),
+    mats (B,V,P,3,3), view weights (B,V) and a cotangent (B,P,H,W). View v
+    has its element's rotation and v/2 + 1 times its translation. With
+    ``offset`` meas starts one float into its storage (no 16-byte loads)."""
     from dvmvs_tpu_torch.ops.cost_volume import inverse_depth_planes
     from dvmvs_tpu_torch.ops.sweep_measure import pose
 
     rs = np.random.RandomState(seed)
-    b = len(geometries)
-    ref = torch.from_numpy(rs.randn(b, TH, TW, c).astype(np.float32)).to(device)
-    meas = torch.from_numpy(rs.randn(b, 1, TH, TW, c).astype(np.float32)).to(device)
-    g = torch.from_numpy(rs.randn(b, P, TH, TW).astype(np.float32)).to(device)
-    K = torch.tensor([[0.75 * TW, 0, TW / 2], [0, 0.75 * TW, TH / 2], [0, 0, 1]], device=device)
-    poses = torch.from_numpy(np.stack([pose(*e, t) for e, t in geometries])).to(device)
-    mats = ps.build_plane_matrices(torch.eye(4, device=device), poses, K,
-                                   inverse_depth_planes(0.25, 20.0, P, device))
-    return ref, meas, mats[:, None].contiguous(), torch.ones((b, 1), device=device), g
+    b, v, (h, w) = len(geometries), len(weights), hw
+    ref = torch.from_numpy(rs.randn(b, h, w, c).astype(np.float32)).to(device)
+    meas = torch.from_numpy(rs.randn(b, v, h, w, c).astype(np.float32)).to(device)
+    g = torch.from_numpy(rs.randn(b, P, h, w).astype(np.float32)).to(device)
+    if offset:
+        buf = torch.empty(meas.numel() + 1, device=device)
+        buf[1:] = meas.reshape(-1)
+        meas = buf[1:].view(meas.shape)
+    K = torch.tensor([[0.75 * w, 0, w / 2], [0, 0.75 * w, h / 2], [0, 0, 1]], device=device)
+    poses = np.stack([[pose(*e, np.multiply(t, 1 + i / 2)) for i in range(v)]
+                      for e, t in geometries])
+    mats = ps.build_plane_matrices(torch.eye(4, device=device), torch.from_numpy(poses).to(device),
+                                   K, inverse_depth_planes(0.25, 20.0, P, device))
+    return ref, meas, mats.contiguous(), torch.tensor([weights] * b, device=device), g
 
 
-LATERAL, TYPICAL = ((0, 0, 0), (0.12, 0.0, 0.0)), ((2, 3, 1), (0.12, 0.03, 0.02))
-ROLL_35, YAW_120 = ((0, 0, 35), (0.1, 0.0, 0.0)), ((0, 120, 0), (0.1, 0.0, 2.0))
-# name -> (geometry of each of the TB batch elements, C)
+# name -> train_case options: the TB batch elements' geometries (default
+# TYPICAL), C, (H, W), view weights, meas at an unaligned offset
 BWD_CASES = {
-    "lateral": ([LATERAL] * TB, TC),
-    "typical": ([TYPICAL] * TB, TC),
-    "extreme_roll_35": ([ROLL_35] * TB, TC),
-    "behind_camera_yaw_120": ([YAW_120] * TB, TC),
-    "c30": ([TYPICAL] * TB, 30),
-    "mixed_batch": ([LATERAL, TYPICAL, ROLL_35, YAW_120], TC),
+    "lateral": {"geometries": [LATERAL] * TB},
+    "typical": {},
+    "extreme_roll_35": {"geometries": [ROLL_35] * TB},
+    "behind_camera_yaw_120": {"geometries": [YAW_120] * TB},
+    "c30": {"c": 30},
+    "mixed_batch": {"geometries": [LATERAL, TYPICAL, ROLL_35, YAW_120]},
+    "c64": {"c": 64},
+    "c13_scalar": {"c": 13},
+    "unaligned_meas": {"offset": True},
+    "ragged_37x45": {"hw": (37, 45)},
+    "wide_diagonal": {"geometries": [WIDE] * TB},
+    "backward_1m": {"geometries": [BACK] * TB},
+    "online_masked": {"geometries": [TYPICAL], "hw": ONLINE[3:5], "weights": (1.0, 0.0)},
+    "views_5": {"weights": (0.3, 0.25, 0.2, 0.15, 0.1)},
 }
+
+
+def bwd_case(torch, ps, seed, name, device):
+    """The inputs of BWD_CASES[name] (train_case's result)."""
+    options = {"geometries": [TYPICAL] * TB, "c": TC, **BWD_CASES[name]}
+    return train_case(torch, ps, seed, options.pop("geometries"), options.pop("c"), device,
+                      **options)
 
 
 def render_frames(seed, n_frames, first, last, size):
@@ -264,8 +298,9 @@ def main():
     from dvmvs_tpu_torch.apps.run_testing_online import predict_stream
     from dvmvs_tpu_torch.config import DepthConfig, TestConfig, TrainConfig
     from dvmvs_tpu_torch.ops import plane_sweep as ps
-    from dvmvs_tpu_torch.ops.sweep_measure import (SINGLE_LAUNCH_TIMER, TIMER, single_launch_ms,
-                                                   sweep_bound, sweep_case, time_ms)
+    from dvmvs_tpu_torch.ops.sweep_measure import (SINGLE_LAUNCH_TIMER, TIMER, binned_share,
+                                                   single_launch_ms, sweep_bound, sweep_case,
+                                                   time_ms)
     from dvmvs_tpu_torch.utils.results import InferenceTimer
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -373,21 +408,24 @@ def main():
     if not rel <= REF_RTOL:
         raise AssertionError("card and CPU depths disagree")
 
-    # 7. [bwd-compare] at the training shape: the forward kernel with V=1
-    # (K3/K4) and the backward kernel (K5/K6) against the plain version and
-    # autograd through it
+    # 7. [bwd-compare] at the training shape and the cases around it: the
+    # forward kernel (K3/K4 with V=1) and the backward kernel (K5/K6) against
+    # the plain version and autograd through it; d_ref bit-identical over two
+    # calls, and a masked view's d_meas exactly 0
     bwd_err = 0.0
-    for name, (geometries, c) in BWD_CASES.items():
-        ref, meas, mats, w, g = train_case(torch, ps, 2, geometries, c, device)
+    for name in BWD_CASES:
+        ref, meas, mats, w, g = bwd_case(torch, ps, 2, name, device)
         fwd_err = (ps.plane_sweep_multiview(ref, meas, mats, w)
                    - ps.plane_sweep_multiview_plain(ref, meas, mats, w)).abs().max().item()
         want = ps.plane_sweep_backward_plain(ref, meas, mats, w, g)
         got = ps.plane_sweep_backward(ref, meas, mats, w, g)
+        again = ps.plane_sweep_backward(ref, meas, mats, w, g)
         torch.cuda.synchronize()
-        line = [f"[bwd-compare] {name} (B={TB}, V=1, C={c}, {TH}x{TW}, P={P}): forward "
+        (nb, h, wd, c), v = ref.shape, w.shape[1]
+        line = [f"[bwd-compare] {name} (B={nb}, V={v}, C={c}, {h}x{wd}, P={P}): forward "
                 f"max_abs_diff {fwd_err:.3e} (tol {TOL[True]:g})"]
         if not (np.isfinite(fwd_err) and fwd_err <= TOL[True]):
-            raise AssertionError(f"single-view forward disagrees on {name}: {fwd_err}")
+            raise AssertionError(f"forward disagrees on {name}: {fwd_err}")
         for label, a, b in zip(("d_ref", "d_meas"), got, want):
             err, scale = (a - b).abs().max().item(), b.abs().max().item()
             line.append(f"{label} max_abs_diff {err:.3e} (max |grad| {scale:.3e}, limit "
@@ -395,11 +433,19 @@ def main():
             if not (np.isfinite(err) and err <= GRAD_ATOL * max(scale, 1.0)):
                 raise AssertionError(f"backward kernel disagrees on {name} {label}: {err}")
             bwd_err = max(bwd_err, err)
+        if not torch.equal(got[0], again[0]):
+            raise AssertionError(f"d_ref differs between two calls on {name}")
+        masked = got[1][w == 0]
+        if masked.numel() and masked.abs().max().item() != 0.0:
+            raise AssertionError(f"a masked view got a gradient on {name}")
+        binned, steps = binned_share(mats, w, h, wd)
+        line.append(f"d_ref bit-identical over two calls; {masked.shape[0]} masked view(s) "
+                    f"with d_meas exactly 0; d_meas binned in {binned} of {steps} chunk steps")
         print("; ".join(line) + f" ({lap(clock):.1f} s)", flush=True)
 
     # 8. [bwd-time]: forward + backward of the kernel pair against the plain
     # version with autograd, then the backward alone
-    ref, meas, mats, w, g = train_case(torch, ps, 3, [TYPICAL] * TB, TC, device)
+    ref, meas, mats, w, g = bwd_case(torch, ps, 3, "typical", device)
     r, m = ref.clone().requires_grad_(), meas.clone().requires_grad_()
 
     def pair(sweep):

@@ -1,29 +1,44 @@
-"""Time the forward plane-sweep kernel on one GPU, beside an earlier version of it.
+"""Time a plane-sweep kernel on one GPU, beside earlier versions of it.
 
-Builds ``csrc/plane_sweep.cu`` and, in parallel, ``--baseline FILE.cu`` (an
-earlier source of the same kernel, e.g. the parent commit's, written out
-with ``git show``). At each shape it checks both against the plain PyTorch
-version (max abs difference) and against each other, then times them in
-turns (baseline, current, current, baseline; each by
-``ops/sweep_measure.time_ms``: the median of 30 CUDA-event timings of 10
+``--kernel forward`` (the default) builds ``csrc/plane_sweep.cu``,
+``--kernel backward`` builds ``csrc/plane_sweep_bwd.cu``; each ``--baseline
+FILE.cu`` (an earlier source of the same kernel, e.g. the parent commit's,
+written out with ``git show``, or an edited copy as a probe; the option may
+be repeated) is built in parallel. A header that a baseline includes is
+taken from beside it before ``csrc/``: write the parent's header there if
+the current one changed. At each shape it checks every version against the
+plain PyTorch version (the forward's ``plane_sweep_multiview_plain``; for
+the backward autograd through it, ``plane_sweep_backward_plain``: max abs
+difference of each output; for the backward also the chunk steps whose
+d_meas is binned, ``sweep_measure.binned_share``) and against the first
+baseline, then times them
+in turns (the baselines, current, current, the baselines in reverse; each
+by ``ops/sweep_measure.time_ms``: the median of 30 CUDA-event timings of 10
 back-to-back launches queued behind a spin kernel, after 5 warm-up launches,
-L2 not flushed: the online step calls the kernel on features the network
-just wrote), and the current kernel once more by ``single_launch_ms`` (one
-launch a timing, the host's launch overhead included). ``--probe`` also
-times the current kernel on matrices that change where the taps fall (every
-plane alike; the identity), which separates the cost of the gathers' cache
-misses from the rest. It prints the card's ``name, power.limit`` and one
-JSON report with each shape's bound (the least time the card could take,
+L2 not flushed: the step calls the kernel on tensors it just wrote), and the
+current kernel once more through its wrapper by ``single_launch_ms`` (one
+call a timing, the host's launch overhead included). The plain version is
+timed too (for the backward, autograd of a kept graph). ``--probe`` also
+times every version on matrices that change where the taps fall (every
+plane on one plane's matrix, so the taps of all planes coincide; the
+identity). It prints the card's ``name, power.limit`` and one JSON report
+with each shape's bound (the least time the card could take,
 ``sweep_bound``) and each version's registers and spills (``ptxas_report``;
 empty for a library built earlier).
 
 Shapes (B, V, C, H, W, P), typical geometry, dot product:
-  online    1, 2, 32, 128, 160, 64: fusionnet at 320x256 frames
-  training  4, 1, 32, 128, 128, 64: the single-view training forward at 256x256
-  640x480   1, 2, 32, 240, 320, 64: 640x480 frames
+  forward:
+    online          1, 2, 32, 128, 160, 64: fusionnet at 320x256 frames
+    training        4, 1, 32, 128, 128, 64: the single-view training forward at 256x256
+    640x480         1, 2, 32, 240, 320, 64: 640x480 frames
+  backward:
+    training        4, 1, 32, 128, 128, 64: the training backward at 256x256
+    online_masked   1, 2, 32, 128, 160, 64, view weights (1, 0): one view masked
+    640x480         1, 2, 32, 240, 320, 64
 
 Run from the repo root: ``python -m dvmvs_tpu_torch.apps.bench_plane_sweep
-[--baseline build/baseline/plane_sweep.cu] [--probe] [--out FILE.json]``.
+[--kernel {forward,backward}] [--baseline build/baseline/plane_sweep.cu ...]
+[--probe] [--out FILE.json]``.
 """
 
 from __future__ import annotations
@@ -37,11 +52,21 @@ import subprocess
 
 import numpy as np
 
+# kernel -> shape name -> ((B, V, C, H, W, P), view weights or None for 1/V each)
 SHAPES = {
-    "online": (1, 2, 32, 128, 160, 64),
-    "training": (4, 1, 32, 128, 128, 64),
-    "640x480": (1, 2, 32, 240, 320, 64),
+    "forward": {
+        "online": ((1, 2, 32, 128, 160, 64), None),
+        "training": ((4, 1, 32, 128, 128, 64), None),
+        "640x480": ((1, 2, 32, 240, 320, 64), None),
+    },
+    "backward": {
+        "training": ((4, 1, 32, 128, 128, 64), None),
+        "online_masked": ((1, 2, 32, 128, 160, 64), (1.0, 0.0)),
+        "640x480": ((1, 2, 32, 240, 320, 64), None),
+    },
 }
+SOURCES = {"forward": "plane_sweep", "backward": "plane_sweep_bwd"}
+OUTPUTS = {"forward": ("cost",), "backward": ("d_ref", "d_meas")}
 
 
 def _short_name(mangled: str) -> str:
@@ -72,75 +97,151 @@ def card_name() -> str:
                           timeout=60).stdout.strip().splitlines()[0]
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--baseline", default=None, help="an earlier plane_sweep.cu to time beside")
-    ap.add_argument("--shapes", default=",".join(SHAPES))
+    ap.add_argument("--kernel", choices=sorted(SHAPES), default="forward")
+    ap.add_argument("--baseline", action="append", default=[],
+                    help="an earlier source of the kernel to time beside (repeatable)")
+    ap.add_argument("--shapes", default=None,
+                    help="comma-separated shape names (default: all of the kernel's)")
     ap.add_argument("--probe", action="store_true",
-                    help="also time the current kernel at each shape with every plane's "
-                         "matrix replaced by one plane's (the taps of all planes coincide) "
-                         "and by the identity (each pixel samples itself)")
+                    help="also time every version at each shape with every plane's matrix "
+                         "replaced by one plane's (the taps of all planes coincide) and by "
+                         "the identity (each pixel samples itself)")
     ap.add_argument("--out", default=None, help="also write the report to this JSON file")
     args = ap.parse_args(argv)
+    args.shapes = args.shapes.split(",") if args.shapes else list(SHAPES[args.kernel])
+    unknown = set(args.shapes) - set(SHAPES[args.kernel])
+    if unknown:
+        ap.error(f"unknown {args.kernel} shapes {sorted(unknown)}; "
+                 f"choose from {sorted(SHAPES[args.kernel])}")
+    return args
 
+
+def turns(baselines) -> list:
+    """Timing order: the baselines, current twice, the baselines in reverse."""
+    return [*baselines, "current", "current", *reversed(baselines)]
+
+
+def case_inputs(kernel: str, shape_name: str, device="cuda"):
+    """The seeded inputs of a shape: (ref, meas, mats, weights), and the
+    cotangent g (B, P, H, W) for the backward."""
+    import torch
+
+    from dvmvs_tpu_torch.ops.sweep_measure import sweep_case
+
+    shape, weights = SHAPES[kernel][shape_name]
+    inputs = sweep_case(shape, weights=weights, device=device)
+    if kernel == "backward":
+        B, _, _, H, W, P = shape
+        g = np.random.RandomState(1).randn(B, P, H, W).astype(np.float32)
+        inputs = (*inputs, torch.from_numpy(g).to(device))
+    return inputs
+
+
+def plain(kernel: str, inputs) -> tuple:
+    """The plain version's outputs (``OUTPUTS[kernel]``) on these inputs."""
+    from dvmvs_tpu_torch.ops import plane_sweep as ps
+
+    if kernel == "forward":
+        return (ps.plane_sweep_multiview_plain(*inputs),)
+    return ps.plane_sweep_backward_plain(*inputs)
+
+
+def launch(kernel: str, fn, inputs) -> tuple:
+    """Launch a bound entry point of the kernel on the inputs."""
+    from dvmvs_tpu_torch.ops import plane_sweep as ps
+
+    if kernel == "forward":
+        return (ps.launch_forward(fn, *inputs),)
+    return ps.launch_backward(fn, *inputs)
+
+
+def max_abs_diff(kernel: str, got, want) -> dict:
+    """{output name: max abs difference} of two output tuples."""
+    return {name: (a - b).abs().max().item() for name, a, b in zip(OUTPUTS[kernel], got, want)}
+
+
+def plain_timer(kernel: str, inputs):
+    """A call of the plain version to time: the forward, or for the backward
+    autograd of a graph built once and kept."""
+    import torch
+
+    from dvmvs_tpu_torch.ops import plane_sweep as ps
+
+    if kernel == "forward":
+        return lambda: ps.plane_sweep_multiview_plain(*inputs)
+    ref, meas, mats, w, g = inputs
+    r, m = ref.clone().requires_grad_(), meas.clone().requires_grad_()
+    out = ps.plane_sweep_multiview_plain(r, m, mats, w)
+    return lambda: torch.autograd.grad(out, (r, m), g, retain_graph=True)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     import torch
 
     from dvmvs_tpu_torch.ops import cuda_build
     from dvmvs_tpu_torch.ops import plane_sweep as ps
-    from dvmvs_tpu_torch.ops.sweep_measure import (single_launch_ms, sweep_bound, sweep_case,
+    from dvmvs_tpu_torch.ops.sweep_measure import (binned_share, single_launch_ms, sweep_bound,
                                                    time_ms)
 
     if not torch.cuda.is_available():
         raise SystemExit("bench_plane_sweep: needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    versions = {"current": "plane_sweep"}
-    if args.baseline:
-        versions["baseline"] = ("plane_sweep", os.path.abspath(args.baseline))
+    kernel, source = args.kernel, SOURCES[args.kernel]
+    versions = {"current": source}
+    versions.update({path: (source, os.path.abspath(path)) for path in args.baseline})
     built = cuda_build.build_all(list(versions.values()))
-    fns = {name: ps.bind(ctypes.CDLL(str(built[k][0])), "plane_sweep")
-           for name, k in versions.items()}
+    fns = {name: ps.bind(ctypes.CDLL(str(built[k][0])), source) for name, k in versions.items()}
     ptxas = {name: ptxas_report(built[k][1]) for name, k in versions.items()}
+    wrapper = ps.plane_sweep_multiview if kernel == "forward" else ps.plane_sweep_backward
 
-    order = ["baseline", "current", "current", "baseline"] if args.baseline else ["current"] * 2
-    report = {"card": card_name(), "ptxas": ptxas, "shapes": {}}
-    for shape_name in args.shapes.split(","):
-        shape = SHAPES[shape_name]
-        ref, meas, mats, w = sweep_case(shape)
-        want = ps.plane_sweep_multiview_plain(ref, meas, mats, w)
-        outs = {name: ps.launch_forward(fn, ref, meas, mats, w) for name, fn in fns.items()}
+    report = {"card": card_name(), "kernel": kernel, "ptxas": ptxas, "shapes": {}}
+    for shape_name in args.shapes:
+        inputs = case_inputs(kernel, shape_name)
+        want = plain(kernel, inputs)
+        outs = {name: launch(kernel, fn, inputs) for name, fn in fns.items()}
         torch.cuda.synchronize()
-        entry = {"shape": dict(zip("BVCHWP", shape)), **sweep_bound(ref, meas, mats, w),
-                 "max_abs_err": {n: (o - want).abs().max().item() for n, o in outs.items()}}
+        ref, meas, mats, w = inputs[:4]
+        entry = {"shape": dict(zip("BVCHWP", SHAPES[kernel][shape_name][0])),
+                 "weights": w[0].tolist(),
+                 **sweep_bound(ref, meas, mats, w, backward=kernel == "backward"),
+                 "max_abs_err": {n: max_abs_diff(kernel, o, want) for n, o in outs.items()}}
+        if kernel == "backward":
+            entry["binned_steps"] = binned_share(mats, w, *ref.shape[1:3])
         if args.baseline:
-            entry["max_abs_diff_to_baseline"] = {
-                n: (o - outs["baseline"]).abs().max().item() for n, o in outs.items()}
+            first = outs[args.baseline[0]]
+            entry["max_abs_diff_to_baseline"] = {n: max_abs_diff(kernel, o, first)
+                                                 for n, o in outs.items()}
         times = {}
-        for name in order:
+        for name in turns(args.baseline):
             fn = fns[name]
-            times.setdefault(name, []).append(
-                time_ms(lambda: ps.launch_forward(fn, ref, meas, mats, w)))
+            times.setdefault(name, []).append(time_ms(lambda: launch(kernel, fn, inputs)))
         entry["ms"] = times
-        entry["single_launch_ms"] = single_launch_ms(
-            lambda: ps.plane_sweep_multiview(ref, meas, mats, w))
-        entry["plain_ms"] = time_ms(lambda: ps.plane_sweep_multiview_plain(ref, meas, mats, w))
+        entry["single_launch_ms"] = single_launch_ms(lambda: wrapper(*inputs))
+        entry["plain_ms"] = time_ms(plain_timer(kernel, inputs))
         if args.probe:
             one_plane = mats[:, :, mats.shape[2] // 2:][:, :, :1].expand_as(mats).contiguous()
             identity = torch.eye(3, device=mats.device).expand_as(mats).contiguous()
             entry["probe_ms"] = {
-                name: time_ms(lambda m=m: ps.launch_forward(fns["current"], ref, meas, m, w))
-                for name, m in (("one_plane", one_plane), ("identity", identity))}
+                probe: {name: time_ms(lambda fn=fn, m=m: launch(
+                    kernel, fn, (ref, meas, m, *inputs[3:]))) for name, fn in fns.items()}
+                for probe, m in (("one_plane", one_plane), ("identity", identity))}
         entry["share_of_bound"] = {n: entry["bound_ms"] / float(np.median(t))
                                    for n, t in times.items()}
         report["shapes"][shape_name] = entry
-        print(f"[bench] {shape_name} {shape}: bound {entry['bound_ms']:.4f} ms "
+        print(f"[bench] {kernel} {shape_name} {entry['shape']}: bound {entry['bound_ms']:.4f} ms "
               f"({entry['bound_by']}); " + "; ".join(
                   f"{n} {', '.join(f'{v:.4f}' for v in t)} ms" for n, t in times.items())
               + f"; current through the wrapper, single launches "
               f"{entry['single_launch_ms']:.4f} ms; plain {entry['plain_ms']:.4f} ms; "
-              + "".join(f"probe {n} {t:.4f} ms; " for n, t in entry.get("probe_ms", {}).items())
-              + "max_abs_err "
-              + ", ".join(f"{n} {e:.2e}" for n, e in entry["max_abs_err"].items()), flush=True)
+              + "".join(f"probe {p} " + ", ".join(f"{n} {t:.4f}" for n, t in d.items()) + " ms; "
+                        for p, d in entry.get("probe_ms", {}).items())
+              + "max_abs_err " + ", ".join(
+                  f"{n} " + "/".join(f"{e:.2e}" for e in d.values())
+                  for n, d in entry["max_abs_err"].items()), flush=True)
     print(report["card"])
     text = json.dumps(report)
     print(text)

@@ -32,21 +32,27 @@ from dvmvs_tpu_torch.utils.weights import load_jax_variables
 
 
 class InferenceEngine:
-    def __init__(self, model_kind: str, cfg: TestConfig = TestConfig(), device="cpu",
+    def __init__(self, model_kind: str, cfg: TestConfig = TestConfig(), device="cuda",
                  variables=None, seed: int = 0):
-        """``variables``: optional Flax ``{"params", "batch_stats"}`` tree to
-        load (see utils/weights.py); without it the weights are drawn from a
+        """Runs on the card unless ``device="cpu"`` is asked for; raises if
+        the card is asked for and there is none. ``variables``: optional
+        Flax ``{"params", "batch_stats"}`` tree to load (see
+        utils/weights.py); without it the weights are drawn from a
         ``torch.Generator`` seeded with ``seed``."""
         if model_kind not in ("pairnet", "fusionnet"):
             raise ValueError(f"unknown model kind {model_kind!r}")
         if cfg.image_height % 32 or cfg.image_width % 32:
             raise ValueError("image height and width must be multiples of 32 "
                              "(1/32 bottleneck grid)")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"InferenceEngine: device {device!r} asked for, but "
+                               "torch.cuda.is_available() is false; pass device=\"cpu\" to run "
+                               "on the CPU")
         self.kind = model_kind
         self.cfg = cfg
         self.H, self.W = cfg.image_height, cfg.image_width
         self.V = cfg.n_measurement_frames
-        self.device = torch.device(device)
 
         d = cfg.depth
         net = PairNet if model_kind == "pairnet" else FusionNet

@@ -172,7 +172,8 @@ def main(argv=None) -> str:
                     help="ship uint8 images + f16 depths to the device and normalise there")
     ap.add_argument("--data-workers", type=int, default=1,
                     help="crawler worker processes")
-    ap.add_argument("--device", default=None, help="default: cuda if available, else cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises if there is no card) or cpu")
     args = ap.parse_args(argv)
 
     kind = args.model
@@ -193,7 +194,11 @@ def main(argv=None) -> str:
     if args.no_validate:
         overrides["validate"] = False
     cfg = TrainConfig(**overrides)
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"run_training: --device {args.device} asked for, but "
+                           "torch.cuda.is_available() is false; pass --device cpu to train on "
+                           "the CPU")
     freeze_bn = args.freeze_bn or cfg.freeze_batch_normalization
 
     run_dir = _run_directory(args.run_directory)

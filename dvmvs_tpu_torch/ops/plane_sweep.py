@@ -221,16 +221,24 @@ def plane_sweep_backward(ref, meas, mats, weights, g):
                          f"{tuple(g.shape)} on {g.device}")
     if ref.device.type == "cpu":
         return plane_sweep_backward_plain(ref, meas, mats, weights, g)
+    out = launch_backward(_entry("plane_sweep_bwd"), ref, meas, mats, weights, g)
+    backward_launch_count += 1
+    return out
+
+
+def launch_backward(fn, ref, meas, mats, weights, g):
+    """Launch a backward entry point (``bind``) on checked CUDA tensors on
+    the current stream (one launch for any V); returns (d_ref, d_meas)."""
+    B, H, W, C = ref.shape
+    V, P = mats.shape[1:3]
     d_ref = torch.empty_like(ref)
     d_meas = torch.zeros_like(meas)
-    fn = _entry("plane_sweep_bwd")
     with torch.cuda.device(ref.device):
         err = fn(ref.data_ptr(), meas.data_ptr(), mats.data_ptr(), weights.data_ptr(),
                  g.data_ptr(), d_ref.data_ptr(), d_meas.data_ptr(), B, V, P, H, W, C,
                  _stream(ref.device))
     if err != 0:
         raise RuntimeError(f"plane sweep backward kernel launch failed: cudaError {err}")
-    backward_launch_count += 1
     return d_ref, d_meas
 
 

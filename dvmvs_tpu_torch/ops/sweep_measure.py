@@ -2,7 +2,9 @@
 
 Shared by ``apps/bench_plane_sweep.py``, ``chip_smoke.py`` and the card
 tests: seeded sweep inputs at a given shape (``sweep_case``), the least time
-the card could take for a call (``sweep_bound``), and two CUDA-event timers:
+the card could take for a call (``sweep_bound``), the share of the backward
+kernel's chunk steps whose d_meas it bins (``binned_share``), and two
+CUDA-event timers:
 ``time_ms`` (calls queued behind a spin kernel, so a kernel's time excludes
 the host's launch overhead) and ``single_launch_ms`` (each call timed alone
 as the host issues it, which includes that overhead where it is longer than
@@ -15,6 +17,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dvmvs_tpu_torch.ops.cost_volume import inverse_depth_planes
 from dvmvs_tpu_torch.ops.plane_sweep import build_plane_matrices
@@ -28,6 +31,8 @@ PEAK_F32_FLOPS = 67e12
 # FMA to interpolate and 1 for the dot; backward, 4 FMA into d_ref, 4
 # multiplies and 4 atomic adds into d_meas
 FWD_FLOPS, BWD_FLOPS = 10, 16
+# csrc/plane_sweep_bwd.cu's tile (x, y), plane chunk and bin budget
+BWD_TILE, BWD_CHUNK, BWD_MAX_BINS = (32, 2), 8, 1024
 SPIN_CLOCK_HZ = 1.98e9  # H100 SXM5 boost clock: cycles of time_ms's spin kernel per second
 TIMER = "median of 30 CUDA-event timings of 10 calls queued behind a spin kernel, per call"
 SINGLE_LAUNCH_TIMER = "median of 30 CUDA-event timings of one call each, as the host issues it"
@@ -67,17 +72,54 @@ def sweep_case(shape, euler=TYPICAL[0], t=TYPICAL[1], weights=None, seed=0, devi
 def in_range_samples(mats, weights, H: int, W: int) -> int:
     """(b, v, p, y, x) samples of views with a non-zero weight whose bilinear
     footprint touches the image: the samples the kernels do work for."""
-    x = torch.arange(W, dtype=torch.float32, device=mats.device)[None, :]
-    y = torch.arange(H, dtype=torch.float32, device=mats.device)[:, None]
     total = 0
     for p in range(mats.shape[2]):
-        m = mats[:, :, p, :, :, None, None]  # (B, V, 3, 3, 1, 1)
-        den = m[:, :, 2, 0] * x + m[:, :, 2, 1] * y + m[:, :, 2, 2] + 1e-8
-        xs = (m[:, :, 0, 0] * x + m[:, :, 0, 1] * y + m[:, :, 0, 2]) / den * ((W - 1) / W)
-        ys = (m[:, :, 1, 0] * x + m[:, :, 1, 1] * y + m[:, :, 1, 2]) / den * ((H - 1) / H)
+        xs, ys = _source_coords(mats[:, :, p], H, W)  # (B, V, H, W)
         inside = (xs > -1) & (xs < W) & (ys > -1) & (ys < H) & (weights != 0)[:, :, None, None]
         total += int(inside.sum().item())
     return total
+
+
+def _source_coords(m, H: int, W: int):
+    """The kernels' source coordinates (xs, ys) of every pixel under matrices
+    m (..., 3, 3): (..., H, W) each."""
+    x = torch.arange(W, dtype=torch.float32, device=m.device)[None, :]
+    y = torch.arange(H, dtype=torch.float32, device=m.device)[:, None]
+    m = m[..., None, None]
+    den = m[..., 2, 0, :, :] * x + m[..., 2, 1, :, :] * y + m[..., 2, 2, :, :] + 1e-8
+    xs = (m[..., 0, 0, :, :] * x + m[..., 0, 1, :, :] * y + m[..., 0, 2, :, :]) / den
+    ys = (m[..., 1, 0, :, :] * x + m[..., 1, 1, :, :] * y + m[..., 1, 2, :, :]) / den
+    return xs * ((W - 1) / W), ys * ((H - 1) / H)
+
+
+def binned_share(mats, weights, H: int, W: int) -> tuple[int, int]:
+    """(steps binned, steps) of the backward kernel's d_meas route: a step
+    is one (b, v, tile, chunk of BWD_CHUNK planes) with a non-zero view
+    weight and an in-range sample; its samples are binned and gathered by
+    source pixel when the box of their top-left taps has at most
+    BWD_MAX_BINS pixels, else scattered straight to d_meas
+    (csrc/plane_sweep_bwd.cu, at C <= 64)."""
+    B, V, P = mats.shape[:3]
+    (tx, ty), big = BWD_TILE, 1 << 30
+    Hp, Wp = -(-H // ty) * ty, -(-W // tx) * tx
+    binned = total = 0
+    for p0 in range(0, P, BWD_CHUNK):
+        xs, ys = _source_coords(mats[:, :, p0:p0 + BWD_CHUNK], H, W)  # (B, V, n, H, W)
+        inside = (xs > -1) & (xs < W) & (ys > -1) & (ys < H) & (weights != 0)[:, :, None, None,
+                                                                               None]
+        x0, y0 = torch.floor(xs).clamp(-2, W).long(), torch.floor(ys).clamp(-2, H).long()
+        box = []
+        for t, fill, reduce in ((x0, big, torch.amin), (x0, -big, torch.amax),
+                                (y0, big, torch.amin), (y0, -big, torch.amax)):
+            t = F.pad(torch.where(inside, t, fill), (0, Wp - W, 0, Hp - H), value=fill)
+            t = t.reshape(B, V, t.shape[2], Hp // ty, ty, Wp // tx, tx)
+            box.append(reduce(t, dim=(2, 4, 6)))  # (B, V, tiles_y, tiles_x)
+        lo_x, hi_x, lo_y, hi_y = box
+        some = lo_x <= hi_x
+        bins = (hi_x - lo_x + 1) * (hi_y - lo_y + 1)
+        binned += int((some & (bins <= BWD_MAX_BINS)).sum().item())
+        total += int(some.sum().item())
+    return binned, total
 
 
 def _bound(n_bytes: int, flops: int) -> dict:

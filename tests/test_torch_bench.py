@@ -83,3 +83,66 @@ def test_pose_matches_scipy():
     np.testing.assert_allclose(got[:3, :3], want, atol=1e-6)
     np.testing.assert_array_equal(got[:3, 3], np.float32([0.1, 0.2, 0.3]))
     np.testing.assert_array_equal(got[3], [0, 0, 0, 1])
+
+
+def test_bench_parses_the_backward_mode():
+    args = bench.parse_args(["--kernel", "backward", "--baseline", "a.cu", "--baseline", "b.cu",
+                             "--probe"])
+    assert (args.kernel, args.baseline, args.probe) == ("backward", ["a.cu", "b.cu"], True)
+    assert args.shapes == ["training", "online_masked", "640x480"]
+    args = bench.parse_args(["--shapes", "online,640x480"])
+    assert (args.kernel, args.baseline, args.shapes) == ("forward", [], ["online", "640x480"])
+    with pytest.raises(SystemExit):
+        bench.parse_args(["--kernel", "backward", "--shapes", "online"])
+    assert bench.turns(["a", "b"]) == ["a", "b", "current", "current", "b", "a"]
+    assert bench.turns([]) == ["current", "current"]
+
+
+def test_backward_shapes_and_report_keys():
+    want = {"training": ((4, 1, 32, 128, 128, 64), [1.0]),
+            "online_masked": ((1, 2, 32, 128, 160, 64), [1.0, 0.0]),
+            "640x480": ((1, 2, 32, 240, 320, 64), [0.5, 0.5])}
+    for name, (shape, weights) in want.items():
+        B, V, C, H, W, P = shape
+        ref, meas, mats, w, g = bench.case_inputs("backward", name, device="cpu")
+        assert (tuple(ref.shape), tuple(meas.shape), tuple(mats.shape), tuple(g.shape)) == (
+            (B, H, W, C), (B, V, H, W, C), (B, V, P, 3, 3), (B, P, H, W))
+        assert w.tolist() == [weights] * B
+    # the bound of the masked shape counts one view's bytes and samples
+    ref, meas, mats, w, _ = bench.case_inputs("backward", "online_masked", device="cpu")
+    fwd, bwd = (measure.sweep_bound(ref, meas, mats, w, backward=b) for b in (False, True))
+    assert bwd["bytes"] - fwd["bytes"] == 4 * 2 * 128 * 160 * 32
+    assert bwd["flops"] * measure.FWD_FLOPS == fwd["flops"] * measure.BWD_FLOPS
+    got = (torch.zeros(2, 3), torch.ones(4))
+    assert bench.max_abs_diff("backward", got, (torch.ones(2, 3), torch.ones(4))) == {
+        "d_ref": 1.0, "d_meas": 0.0}
+    assert list(bench.max_abs_diff("forward", got[:1], got[:1])) == ["cost"]
+
+
+def test_binned_share_follows_the_tap_boxes(monkeypatch):
+    import chip_smoke as cs
+    from dvmvs_tpu_torch.ops import plane_sweep as ps
+
+    B, V, C, H, W, P = SHAPE
+    _, _, mats, w = measure.sweep_case(SHAPE, device="cpu")
+    identity = torch.eye(3).expand_as(mats).contiguous()
+    steps = B * V * -(-H // 2) * -(-W // 32) * -(-P // measure.BWD_CHUNK)
+    # each tile's top-left taps are its own pixels
+    assert measure.binned_share(identity, w, H, W) == (steps, steps)
+    assert measure.binned_share(identity, torch.tensor([[1.0, 0.0]] * B), H, W) == (
+        steps // 2, steps // 2)
+    # with 64 bins a 32x2 tile fits; zoomed out 2x an inner tile's taps span
+    # 62x3 pixels (a tile at the image's edge keeps only a few in range)
+    monkeypatch.setattr(measure, "BWD_MAX_BINS", 64)
+    zoom = identity.clone()
+    zoom[..., 0, 0] = zoom[..., 1, 1] = 2.0
+    assert measure.binned_share(identity, w, 4 * H, 4 * W) == (steps * 8, steps * 8)
+    binned, total = measure.binned_share(zoom, w, 4 * H, 4 * W)
+    assert 0 < total - binned < total
+    monkeypatch.undo()
+    # the card cases: the typical training geometry is binned; the wide
+    # diagonal motion scatters about half its steps straight to d_meas
+    for name, low, high in (("typical", 1.0, 1.0), ("wide_diagonal", 0.3, 0.7)):
+        _, _, mats, w, _ = cs.bwd_case(torch, ps, 0, name, "cpu")
+        binned, total = measure.binned_share(mats, w, cs.TH, cs.TW)
+        assert total > 0 and low <= binned / total <= high, (name, binned, total)

@@ -166,7 +166,8 @@ def test_engine_streams_through_kernel(cuda_device, kind):
     predictions, indices = predict_stream(engine, frames, poses, K, cfg)
     assert indices == [1, 2, 3, 4, 5]
     assert tps.launch_count - before == len(predictions)
-    want, _ = predict_stream(InferenceEngine(kind, cfg, seed=4), frames, poses, K, cfg)
+    want, _ = predict_stream(InferenceEngine(kind, cfg, device="cpu", seed=4), frames, poses, K,
+                             cfg)
     for p, w in zip(predictions, want):
         assert p.shape == (64, 96) and np.isfinite(p).all()
         assert (p >= 0.25 - 1e-5).all() and (p <= 20.0 + 1e-5).all()
@@ -214,11 +215,16 @@ def _grad_close(got, want):
 
 @pytest.mark.parametrize("case", list(cs.BWD_CASES))
 def test_backward_kernel_matches_autograd_through_plain(cuda_device, case):
-    """chip_smoke.py's [bwd-compare] geometries at the training shape (B=4,
-    V=1, C=32, 128x128, P=64): lateral, typical, 35-degree roll, 120-degree
-    yaw behind the camera, C=30 and a mixed-geometry batch."""
-    geometries, c = cs.BWD_CASES[case]
-    ref, meas, mats, w, g = cs.train_case(torch, tps, 0, geometries, c, cuda_device)
+    """chip_smoke.py's [bwd-compare] cases: the training shape (B=4, V=1,
+    C=32, 128x128, P=64) at lateral, typical, 35-degree roll, 120-degree yaw
+    behind the camera, a mixed-geometry batch, a wide diagonal motion
+    (chunks whose taps outgrow the bins scatter straight to d_meas) and a
+    motion 1 m back (samples beyond a full bin scatter straight to d_meas);
+    C=30, C=64 and C=13 (scalar loads); meas at an unaligned
+    offset; a ragged 37x45; the online shape with its second view masked;
+    5 views. d_ref is bit-identical over two calls, and a masked view's
+    d_meas exactly 0."""
+    ref, meas, mats, w, g = cs.bwd_case(torch, tps, 0, case, cuda_device)
     want_ref, want_meas = tps.plane_sweep_backward_plain(ref, meas, mats, w, g)
     before = tps.backward_launch_count
     got_ref, got_meas = tps.plane_sweep_backward(ref, meas, mats, w, g)
@@ -227,7 +233,9 @@ def test_backward_kernel_matches_autograd_through_plain(cuda_device, case):
     assert torch.isfinite(got_ref).all() and torch.isfinite(got_meas).all()
     _grad_close(got_ref, want_ref)
     _grad_close(got_meas, want_meas)
-    # K3/K4: the forward kernel with V = 1 and weight 1
+    assert torch.equal(tps.plane_sweep_backward(ref, meas, mats, w, g)[0], got_ref)
+    assert (got_meas[w == 0] == 0).all()
+    # the forward kernel on the same inputs (K3/K4 where V = 1)
     fwd = tps.plane_sweep_multiview(ref, meas, mats, w)
     assert (fwd - tps.plane_sweep_multiview_plain(ref, meas, mats, w)).abs().max().item() <= \
         ATOL[True]

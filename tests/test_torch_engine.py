@@ -16,6 +16,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -53,7 +54,7 @@ def test_online_slice_matches_jax(png_scene, tiny_cfg, monkeypatch, kind):
     jengine = JEngine(kind, tiny_cfg)
     want, want_gts = jax_predict_scene(jengine, scene, tiny_cfg, evaluate=True)
 
-    engine = InferenceEngine(kind, tiny_cfg, variables=numpy_variables(jengine))
+    engine = InferenceEngine(kind, tiny_cfg, device="cpu", variables=numpy_variables(jengine))
     before = plane_sweep.launch_count
     got, gts = predict_scene(engine, scene, tiny_cfg, evaluate=True)
     assert plane_sweep.launch_count == before  # the CPU takes the plain version
@@ -82,7 +83,7 @@ def test_stream_from_memory_matches_scene_and_predict(png_scene, tiny_cfg):
     from dvmvs_tpu_torch.apps.run_testing_online import normalize_rgb
 
     scene = os.path.join(png_scene, "tinyset", "000")
-    engine = InferenceEngine("fusionnet", tiny_cfg, seed=3)
+    engine = InferenceEngine("fusionnet", tiny_cfg, device="cpu", seed=3)
     want, _ = predict_scene(engine, scene, tiny_cfg, evaluate=False, max_frames=4)
     assert len(want) == 4
 
@@ -107,11 +108,21 @@ def test_stream_from_memory_matches_scene_and_predict(png_scene, tiny_cfg):
 
 def test_engine_rejects_bad_configuration(tiny_cfg):
     with pytest.raises(ValueError):
-        InferenceEngine("fusionnet", dataclasses.replace(tiny_cfg, image_width=100))
+        InferenceEngine("fusionnet", dataclasses.replace(tiny_cfg, image_width=100), device="cpu")
     with pytest.raises(ValueError):
-        InferenceEngine("mvsnet", tiny_cfg)
-    engine = InferenceEngine("pairnet", tiny_cfg)
+        InferenceEngine("mvsnet", tiny_cfg, device="cpu")
+    engine = InferenceEngine("pairnet", tiny_cfg, device="cpu")
     image = np.zeros((tiny_cfg.image_height, tiny_cfg.image_width, 3), np.float32)
     f = engine.encode(image)[0]
     with pytest.raises(ValueError):
         engine.encode_and_predict(image, [f, f, f], np.eye(4), [np.eye(4)] * 3, np.eye(3))
+
+
+def test_engine_runs_on_the_card_unless_asked_for_the_cpu(tiny_cfg, monkeypatch):
+    """The engine defaults to the card; without one it raises and names
+    device="cpu" instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            InferenceEngine("pairnet", tiny_cfg, **device)
+    assert InferenceEngine("pairnet", tiny_cfg, device="cpu").device.type == "cpu"

@@ -97,3 +97,15 @@ def test_pairnet_compact_wire_then_warm_start_fusionnet(corpus, tmp_path, capsys
 def test_stage_epoch_budget_matches_jax(n_stages, stage, epoch, finetune, total):
     assert rt.stage_epoch_budget(n_stages, stage, epoch, finetune, total) == \
         jax_budget(n_stages, stage, epoch, finetune, total)
+
+
+def test_driver_trains_on_the_card_unless_asked_for_the_cpu(corpus, tmp_path, monkeypatch):
+    """--device defaults to cuda; without a card the driver raises and names
+    --device cpu instead of training on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--model", "pairnet", "--dataset", corpus, "--run-directory", str(tmp_path),
+            "--epochs", "1"]
+    for device in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            rt.main(argv + device)
+    assert os.listdir(tmp_path) == []  # it raised before making a run directory
