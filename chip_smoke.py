@@ -20,7 +20,19 @@ backward, one nvcc each, in parallel) and drives both paths of the port:
     on a synthetic 256x256 corpus (fusionnet B=4 S=8 through all three
     stages with validation, then pairnet B=14, then one more fusionnet epoch
     resumed from the first run's state), a short overfit, and one train step
-    on the card against the same step on the CPU.
+    on the card against the same step on the CPU;
+  - bulk evaluation and TSDF: the forward kernel at the batched shape (B=8,
+    a geometry per element, masked views), three synthetic scenes stored at
+    640x480 (written with the port's PNG writer, indexed by its keyframe
+    simulator, read through its OpenCV-free crop and resize) through every
+    mode of ``apps/run_testing.py`` at ``TestConfig`` (sequential, batched
+    pairnet B=8, scanned, bfloat16 banks, lockstep fusionnet over the three
+    scenes), each held against the sequential depths, the batched paths'
+    cost volumes against the sequential ones with planted faults (a wrong
+    feature row, swapped views) shown to break those limits, the first
+    keyframes against the CPU, then ``run_tsdf`` on saved predictions on the
+    card and the CPU, the integrate's time at 1.26M voxels, and the online
+    driver with a live TSDF volume.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. Each phase prints its lines; any failure raises, so the exit code is
@@ -35,7 +47,6 @@ from __future__ import annotations
 
 import copy
 import json
-import multiprocessing
 import os
 import subprocess
 import tempfile
@@ -67,6 +78,29 @@ TRAIN_SCENE, VAL_SCENE = (100, 100), (101, 60)
 # frozen BatchNorm, per module (relative L2) with train-mode BatchNorm, whose
 # float32 gradients are ill-conditioned at that size
 STEP_RTOL, FROZEN_GRAD_TOL, TRAIN_GRAD_L2 = 1e-4, 2e-3, 0.1
+
+# bulk evaluation: the forward kernel at the batched pairnet shape, eight
+# geometries with the second view masked in every other element
+BULK = (8, 2, 32, 128, 160, 64)
+# three synthetic scenes stored at 640x480 (read through the crop and resize
+# to 320x256): (seed, frames); in the last, frames 16..47 have no pose, so
+# the index file gets a TRACKING LOST line
+BULK_SCENES, BULK_LOST = ((11, 32), (12, 32), (13, 64)), (13, 16, 48)
+BULK_FRAME, BULK_STEP, BULK_DATASET = (640, 480), 0.05, "synth640"
+BULK_BATCH, BULK_SCAN = 8, 4
+# batched and scanned against sequential depths: the JAX tests' atol
+# (tests/test_drivers_e2e.py) with float32 banks; with bfloat16 banks 1e-5 m,
+# from the measured 4.2e-7 m. Seeded weights keep the depth in a narrow band
+# where a wrong feature row moves it by about 1e-6 m, so [bulk-faults] holds
+# the cost volumes instead, max |diff| over max |sequential| a keyframe:
+# measured 3.4e-7 (float32) and 1.8e-3 (bfloat16) against 0.14 and more with
+# a planted fault (a wrong feature row, swapped views), which must break both
+BULK_ATOL, BF16_ATOL = 1e-4, 1e-5
+CV_RTOL, CV_BF16_RTOL = 1e-4, 1e-2
+# TSDF: card against CPU, tsdf values (colour and weight must be equal); at
+# most this share of the voxels may differ (a pixel rounded at a .5 tie)
+TSDF_ATOL, TSDF_FLIP_SHARE = 1e-5, 1e-4
+TSDF_VOXEL, TSDF_CUBE = 0.05, 5.4  # 108^3 = 1.26M voxels for the timing
 
 
 def _with_c(shape, c):
@@ -174,12 +208,13 @@ def write_corpus(root, size=256, workers=8):
     training size (no resize, so no OpenCV) by ``workers`` spawned
     processes."""
     from dvmvs_tpu_torch.data import synthetic as synth
+    from dvmvs_tpu_torch.data.scene_folders import spawn_pool
 
     jobs, names = [], []
     for seed, n in (TRAIN_SCENE, VAL_SCENE):
         step = -(-n // workers)
         jobs += [(seed, n, i, min(i + step, n), size) for i in range(0, n, step)]
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+    with spawn_pool(workers) as pool:
         chunks = pool.starmap(render_frames, jobs)
     frames = {}
     for (seed, _, first, _, _), chunk in zip(jobs, chunks):
@@ -198,6 +233,298 @@ def write_corpus(root, size=256, workers=8):
     for split, name in zip(("train", "validation"), names):
         with open(os.path.join(root, f"{split}.txt"), "w") as f:
             f.write(name + "\n")
+
+
+BULK_GEOMETRIES = [LATERAL, TYPICAL, ROLL_35, YAW_120, ((0, 0, 4), (0.05, 0.0, 0.1)), WIDE, BACK,
+                   ((5, -4, 2), (0.08, -0.05, 0.04))]
+
+
+def bulk_case(torch, ps, seed, device):
+    """Forward inputs at the BULK shape: one geometry per batch element, the
+    second view masked (weights 1, 0) in the odd elements."""
+    b, v, c, h, w, _ = BULK
+    ref, meas, mats, _, _ = train_case(torch, ps, seed, BULK_GEOMETRIES[:b], c, device,
+                                       hw=(h, w), weights=(0.5,) * v)
+    weights = torch.tensor([(0.5, 0.5) if i % 2 == 0 else (1.0, 0.0) for i in range(b)],
+                           device=device)
+    return ref, meas, mats, weights
+
+
+def bulk_phases(torch, ps, device, cfg, card, clock, tmp):
+    """[bulk-scenes], [bulk], [bulk-reference], [tsdf] and [live-tsdf];
+    returns the forward launches and timings of the batched pairnet run."""
+    from dvmvs_tpu_torch.apps import run_testing as rt
+    from dvmvs_tpu_torch.apps import run_testing_online, run_tsdf
+    from dvmvs_tpu_torch.apps.engine import InferenceEngine
+    from dvmvs_tpu_torch.apps.simulate_keyframe_buffer import simulate_dataset
+    from dvmvs_tpu_torch.data.io import load_depth_png
+    from dvmvs_tpu_torch.data.scene_folders import write_scene_folders
+    from dvmvs_tpu_torch.ops import tsdf
+    from dvmvs_tpu_torch.ops.sweep_measure import TIMER, time_ms
+    from dvmvs_tpu_torch.utils.results import save_results
+
+    # [bulk-scenes]: 640x480 scene folders and their index files
+    folders = write_scene_folders(os.path.join(tmp, BULK_DATASET), BULK_SCENES, BULK_FRAME,
+                                  BULK_STEP, BULK_LOST)
+    simulate_dataset(os.path.join(tmp, BULK_DATASET), os.path.join(tmp, "indices"), 2)
+    jobs = [(f, os.path.join(tmp, "indices", f"keyframe+{BULK_DATASET}+{os.path.basename(f)}"
+                                              f"+nmeas+2")) for f in folders]
+    lines = [rt.read_index(index) for _, index in jobs]
+    if "TRACKING LOST" not in lines[-1]:
+        raise AssertionError("the scene without poses got no TRACKING LOST line")
+    # the timed modes read warm frame caches and no ground truth, so they
+    # time the device path and the driver, not the PNG decode
+    t0 = time.perf_counter()
+    assets = [rt.SceneAssets(f, cfg, evaluate=False) for f, _ in jobs]
+    for a in assets:
+        for name in a.image_filenames:
+            a.image(name)
+    n_images = sum(len(a.image_filenames) for a in assets)
+    host_ms = (time.perf_counter() - t0) * 1e3 / n_images
+    t0 = time.perf_counter()
+    gt = assets[0].preprocessor.apply_depth(load_depth_png(
+        os.path.join(jobs[0][0], "depth", assets[0].image_filenames[0])))
+    gt_ms = (time.perf_counter() - t0) * 1e3
+    keyframes = [sum(line != "TRACKING LOST" for line in ls) for ls in lines]
+    print(f"[bulk-scenes] {len(folders)} scenes ({', '.join(map(str, keyframes))} keyframes, "
+          f"{n_images} frames at {BULK_FRAME[0]}x{BULK_FRAME[1]}) written with write_png and "
+          f"indexed by simulate_keyframe_buffer; PNG decode + crop + resize to "
+          f"{cfg.image_width}x{cfg.image_height} without OpenCV {host_ms:.1f} ms a frame on the "
+          f"host, a depth map {gt_ms:.1f} ms ({gt.shape[1]}x{gt.shape[0]}) ({lap(clock):.1f} s)",
+          flush=True)
+
+    # [bulk]: every mode twice (the first warms the convolutions up), timed
+    # and checked on the second, with warm host caches
+    n_kf = sum(keyframes)
+    cache = {os.path.abspath(f): a for (f, _), a in zip(jobs, assets)}
+    pair = InferenceEngine("pairnet", cfg, device=device, seed=0)
+    fusion = InferenceEngine("fusionnet", cfg, device=device, seed=0)
+
+    def per_scene(fn):
+        return lambda: [fn(f, index, a) for (f, index), a in zip(jobs, assets)]
+
+    modes = {
+        "pairnet sequential": (per_scene(lambda f, i, a: rt.evaluate_scene(
+            pair, f, i, cfg, evaluate=False, assets=a)[0]), n_kf),
+        f"pairnet batched B={BULK_BATCH}": (per_scene(lambda f, i, a: rt.evaluate_scene_batched(
+            pair, f, i, cfg, BULK_BATCH, evaluate=False, assets=a, bank_dtype="f32")[0]),
+            sum(-(-k // BULK_BATCH) for k in keyframes)),
+        f"pairnet scanned B={BULK_BATCH} chunk {BULK_SCAN}": (per_scene(
+            lambda f, i, a: rt.evaluate_scene_batched(
+                pair, f, i, cfg, BULK_BATCH, evaluate=False, assets=a, scan_chunk=BULK_SCAN,
+                bank_dtype="f32")[0]), sum(-(-k // BULK_BATCH) for k in keyframes)),
+        f"pairnet batched B={BULK_BATCH} bf16 bank": (per_scene(
+            lambda f, i, a: rt.evaluate_scene_batched(
+                pair, f, i, cfg, BULK_BATCH, evaluate=False, assets=a, bank_dtype="bf16")[0]),
+            sum(-(-k // BULK_BATCH) for k in keyframes)),
+        "fusionnet sequential": (per_scene(lambda f, i, a: rt.evaluate_scene(
+            fusion, f, i, cfg, evaluate=False, assets=a)[0]), n_kf),
+        f"fusionnet lockstep x{len(jobs)}": (lambda: [p for p, _ in rt.evaluate_scenes_batched_fusion(
+            fusion, jobs, cfg, evaluate=False, asset_cache=cache, bank_dtype="f32")],
+            max(keyframes)),
+        f"fusionnet lockstep x{len(jobs)} chunk {BULK_SCAN}": (
+            lambda: [p for p, _ in rt.evaluate_scenes_batched_fusion(
+                fusion, jobs, cfg, evaluate=False, asset_cache=cache, scan_chunk=BULK_SCAN,
+                bank_dtype="f32")], max(keyframes)),
+        f"fusionnet lockstep x{len(jobs)} bf16 bank": (
+            lambda: [p for p, _ in rt.evaluate_scenes_batched_fusion(
+                fusion, jobs, cfg, evaluate=False, asset_cache=cache, bank_dtype="bf16")],
+            max(keyframes)),
+    }
+    runs = {}
+    for name, (fn, min_launches) in modes.items():
+        fn()
+        depths, seconds, peak, fwd, bwd = timed_run(torch, ps, fn)
+        if bwd or fwd < min_launches:
+            raise AssertionError(f"{name}: kernels launched {fwd} forward (want >= "
+                                 f"{min_launches}) and {bwd} backward (want 0)")
+        flat = [d for scene in depths for d in scene]
+        if len(flat) != n_kf or not all(np.isfinite(d).all() and d.shape == (
+                cfg.image_height, cfg.image_width) for d in flat):
+            raise AssertionError(f"{name}: {len(flat)} depths of {n_kf}, or bad values")
+        base = runs.get("pairnet sequential" if name.startswith("pairnet")
+                        else "fusionnet sequential")
+        gap, tol = None, BF16_ATOL if "bf16" in name else BULK_ATOL
+        if base is not None:
+            gap = max_gap(flat, base["flat"])
+            if not gap <= tol:
+                raise AssertionError(f"{name}: depths {gap:.3e} from the sequential run")
+        runs[name] = {"flat": flat, "seconds": seconds, "peak": peak, "fwd": fwd,
+                      "kf_per_s": n_kf / seconds}
+        print(f"[bulk] {name}: {n_kf} keyframes over {len(jobs)} scenes in {seconds:.3f} s "
+              f"({n_kf / seconds:.1f} keyframes/s), peak memory {peak:.1f} MiB, forward kernel "
+              f"launches {fwd} (>= {min_launches}), backward 0"
+              + (f", max |depth - sequential| {gap:.3e} m (tol {tol:g})"
+                 if gap is not None else "")
+              + f" ({lap(clock):.1f} s) | {card}", flush=True)
+
+    # [bulk-faults]: the cost volumes a keyframe of the batched pairnet run
+    # (first scene) and of the lockstep run (all scenes) against the
+    # sequential ones, with each bank dtype, then with a fault planted in the
+    # bank's read; the sound runs must stay within the limits and every
+    # fault must break the looser one
+    def rows(engine, fn):
+        with engine.recording_cost_volumes() as calls:
+            fn()
+        return [r for c in calls for r in c]
+
+    def lockstep_rows(flat):
+        """Row s of lockstep step t is scene s's keyframe t: scene by scene."""
+        return [r for s, k in enumerate(keyframes) for r in flat[s::len(jobs)][:k]]
+
+    want = {"pairnet": rows(pair, lambda: rt.evaluate_scene(pair, *jobs[0], cfg, evaluate=False,
+                                                            assets=assets[0])),
+            "fusionnet": rows(fusion, lambda: [rt.evaluate_scene(
+                fusion, *job, cfg, evaluate=False, assets=a) for job, a in zip(jobs, assets)])}
+    runs_cv = {
+        "pairnet": lambda dtype: rows(pair, lambda: rt.evaluate_scene_batched(
+            pair, *jobs[0], cfg, BULK_BATCH, evaluate=False, assets=assets[0],
+            bank_dtype=dtype))[:keyframes[0]],
+        "fusionnet": lambda dtype: lockstep_rows(rows(
+            fusion, lambda: rt.evaluate_scenes_batched_fusion(
+                fusion, jobs, cfg, evaluate=False, asset_cache=cache, bank_dtype=dtype))),
+    }
+    real = InferenceEngine.gather_features
+    faults = {"measurement rows shifted by one": lambda bank, r, m: (
+                  bank, r, (m + 1) % bank[0].shape[0]),
+              "views swapped": lambda bank, r, m: (bank, r, m.flip(1))}
+    for kind, run in runs_cv.items():
+        gaps = {"f32": cv_gap(run("f32"), want[kind]), "bf16": cv_gap(run("bf16"), want[kind])}
+        for fault, bend in faults.items():
+            InferenceEngine.gather_features = staticmethod(
+                lambda bank, r, m, bend=bend: real(*bend(bank, r, m)))
+            try:
+                gaps[fault] = cv_gap(run("f32"), want[kind])
+            finally:
+                InferenceEngine.gather_features = staticmethod(real)
+        print(f"[bulk-faults] {kind} {'batched' if kind == 'pairnet' else 'lockstep'}: cost "
+              f"volume gap to sequential (max |diff| / max |sequential| a keyframe) "
+              + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+              + f" (limits f32 {CV_RTOL:g}, bf16 {CV_BF16_RTOL:g}; each fault must exceed "
+              f"{CV_BF16_RTOL:g}; {lap(clock):.1f} s)", flush=True)
+        if not (gaps["f32"] <= CV_RTOL and gaps["bf16"] <= CV_BF16_RTOL
+                and all(gaps[f] > CV_BF16_RTOL for f in faults)):
+            raise AssertionError(f"{kind}: cost volume limits broken by a sound run, or a "
+                                 "planted fault not caught")
+
+    # [bulk-reference]: the first keyframes of the sequential fusionnet run
+    # on the CPU with the same seeded weights
+    cpu = InferenceEngine("fusionnet", cfg, device="cpu", seed=0)
+    want, _ = rt.evaluate_scene(cpu, *jobs[0], cfg, evaluate=False, max_frames=N_REF_KEYFRAMES,
+                                assets=assets[0])
+    got = runs["fusionnet sequential"]["flat"][:N_REF_KEYFRAMES]
+    rel = max(float(np.max(np.abs(a - b) / b)) for a, b in zip(got, want))
+    print(f"[bulk-reference] fusionnet evaluate_scene, first {N_REF_KEYFRAMES} keyframes of "
+          f"{os.path.basename(jobs[0][0])}, card vs CPU: max relative depth difference "
+          f"{rel:.3e} (tol {REF_RTOL:g}; {lap(clock):.1f} s)", flush=True)
+    if not rel <= REF_RTOL:
+        raise AssertionError("card and CPU bulk depths disagree")
+
+    # [tsdf]: run_tsdf on the first scene's saved predictions, on the card and
+    # on the CPU; then integrate and marching cubes at 1.26M voxels
+    folder, index = jobs[0]
+    preds, gts = rt.evaluate_scene(fusion, folder, index, cfg)
+    save_results(preds, gts, "bulk_fusionnet", "scene0", os.path.join(tmp, "results"))
+    saved = np.load(os.path.join(tmp, "results", "bulk_fusionnet_predictions_scene0.npz"))["arr_0"]
+    poses, images, depths, K = run_tsdf.load_keyframe_data(folder, index, saved, 3.0,
+                                                           BULK_DATASET)[:4]
+    volumes = {}
+    for dev in (device, "cpu"):
+        volumes[str(dev)] = run_tsdf.reconstruct(
+            poses, images, depths, K, TSDF_VOXEL, os.path.join(tmp, f"mesh_{dev}_complete.ply"),
+            device=dev)
+    card_vol, cpu_vol = volumes[str(device)], volumes["cpu"]
+    verts, _, _, rgb = card_vol.get_mesh()
+    t_card, c_card = card_vol.get_volume()
+    t_cpu, c_cpu = cpu_vol.get_volume()
+    w_card, w_cpu = card_vol.weight.cpu().numpy(), cpu_vol.weight.numpy()
+    differ = int(((c_card != c_cpu).reshape(-1) | (w_card != w_cpu)).sum())
+    same = ((c_card == c_cpu).reshape(-1) & (w_card == w_cpu))
+    t_gap = float(np.abs(t_card - t_cpu).reshape(-1)[same].max())
+    if not (len(verts) and rgb.any() and np.isfinite(t_card).all() and (t_card < 0.999).any()):
+        raise AssertionError(f"tsdf: {len(verts)} vertices, colours {rgb.any()}, finite "
+                             f"{np.isfinite(t_card).all()}, updated {(t_card < 0.999).any()}")
+    if differ > TSDF_FLIP_SHARE * t_card.size or not t_gap <= TSDF_ATOL:
+        raise AssertionError(f"tsdf card vs CPU: {differ} voxels differ, tsdf gap {t_gap:.3e}")
+
+    centre = np.mean([p[:3, 3] for p in poses], axis=0)
+    cube = tsdf.TSDFVolume(np.stack([centre - TSDF_CUBE / 2, centre + TSDF_CUBE / 2], axis=1),
+                           TSDF_VOXEL, device=device)
+    n_vox = int(np.prod(cube.vol_dim))
+    frame_ms = []
+    for color, depth, pose in zip(images, depths, poses):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        cube.integrate(color, depth, K, pose)
+        end.record()
+        end.synchronize()
+        frame_ms.append(start.elapsed_time(end))
+    tensors = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device) for a in (
+        cube.vol_origin, tsdf.pack_color(images[0]), depths[0], K, poses[0])]
+    step_ms = time_ms(lambda: tsdf.integrate_step(
+        cube.tsdf, cube.weight, cube.color, tensors[0], cube.voxel_size, *tensors[1:], 1.0,
+        cube.trunc_margin, tuple(int(d) for d in cube.vol_dim)), n=10, reps=5)
+    t0 = time.perf_counter()
+    mesh = cube.get_mesh()
+    mc_s = time.perf_counter() - t0
+    print(f"[tsdf] run_tsdf on {os.path.basename(folder)}: {len(images)} keyframes into "
+          f"{'x'.join(map(str, card_vol.vol_dim))} voxels of {TSDF_VOXEL} m on the card, mesh of "
+          f"{len(verts)} vertices with colours; card vs CPU: {differ} voxels differ in colour or "
+          f"weight (limit {TSDF_FLIP_SHARE:g} of {t_card.size}), tsdf gap elsewhere {t_gap:.3e} "
+          f"(tol {TSDF_ATOL:g}); integrate at {'x'.join(map(str, cube.vol_dim))} = {n_vox} voxels: "
+          f"median {np.median(frame_ms):.3f} ms a frame (CUDA events around integrate, host "
+          f"packing and uploads included), integrate_step alone {step_ms:.4f} ms ({TIMER}); "
+          f"marching cubes {mc_s:.3f} s ({len(mesh[0])} vertices) ({lap(clock):.1f} s) | {card}",
+          flush=True)
+
+    # [live-tsdf]: the online driver fusing every keyframe into a volume
+    live = run_testing_online.LiveTSDF(voxel_size=TSDF_VOXEL, max_depth=3.0, device=device)
+    (preds, _), _, peak, fwd, _ = timed_run(torch, ps, lambda: run_testing_online.predict_scene(
+        fusion, folder, cfg, evaluate=False, live_tsdf=live))
+    mesh_path = os.path.join(tmp, "live", "live_complete.ply")
+    live.save_mesh(mesh_path)
+    if not (live.n_integrated == len(preds) > 0 and fwd >= len(preds)
+            and os.path.getsize(mesh_path) > 0):
+        raise AssertionError(f"live tsdf: {live.n_integrated} fused of {len(preds)}, "
+                             f"{fwd} launches")
+    print(f"[live-tsdf] predict_scene with LiveTSDF on {os.path.basename(folder)}: "
+          f"{len(preds)} keyframes fused into {'x'.join(map(str, live.volume.vol_dim))} voxels, "
+          f"mesh written ({os.path.getsize(mesh_path)} bytes), forward launches {fwd}, peak "
+          f"memory {peak:.1f} MiB ({lap(clock):.1f} s)", flush=True)
+    return {"kf_per_s": {k: v["kf_per_s"] for k, v in runs.items()},
+            "launches": runs[f"pairnet batched B={BULK_BATCH}"]["fwd"],
+            "tsdf_frame_ms": float(np.median(frame_ms)), "tsdf_step_ms": step_ms,
+            "tsdf_voxels": n_vox, "marching_cubes_s": mc_s}
+
+
+def timed_run(torch, ps, fn):
+    """fn() with the launch counts set to 0 just before and read just after:
+    (result, wall seconds to the last readback, peak MiB, forward launches,
+    backward launches)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ps.launch_count = ps.backward_launch_count = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 20,
+            ps.launch_count, ps.backward_launch_count)
+
+
+def max_gap(got, want):
+    """Largest absolute difference over two lists of depth maps (equal
+    lengths required)."""
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"{len(got)} depths against {len(want)}")
+    return max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+
+
+def cv_gap(got, want):
+    """Largest max |got - want| / max |want| over two lists of cost volumes
+    (equal lengths required)."""
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"{len(got)} cost volumes against {len(want)}")
+    return max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want))
 
 
 def read_run(run_dir):
@@ -357,6 +684,25 @@ def main():
               f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['bytes']} bytes, "
               f"{bound['flops']} flops), {bound['bound_ms'] / kernel_ms:.1%} of it reached "
               f"({lap(clock):.1f} s)", flush=True)
+
+    # 4b. the bulk shape: eight batch elements of another geometry each, the
+    # second view masked in every other one
+    ref, meas, mats, w = bulk_case(torch, ps, 4, device)
+    want = ps.plane_sweep_multiview_plain(ref, meas, mats, w)
+    got = ps.plane_sweep_multiview(ref, meas, mats, w)
+    bulk_err = (got - want).abs().max().item()
+    if not (np.isfinite(bulk_err) and bulk_err <= TOL[True]):
+        raise AssertionError(f"kernel disagrees with the plain version at the bulk shape: "
+                             f"{bulk_err}")
+    max_err = max(max_err, bulk_err)
+    bulk_ms = time_ms(lambda: ps.plane_sweep_multiview(ref, meas, mats, w))
+    bulk_plain_ms = time_ms(lambda: ps.plane_sweep_multiview_plain(ref, meas, mats, w))
+    bulk_bound = sweep_bound(ref, meas, mats, w)
+    print(f"[compare] bulk (B,V,C,H,W,P)={BULK}, a geometry per element, view 1 masked in 4: "
+          f"max_abs_diff={bulk_err:.3e} (tol {TOL[True]:g}); kernel {bulk_ms:.4f} ms, plain "
+          f"{bulk_plain_ms:.4f} ms ({TIMER}); bound {bulk_bound['bound_ms']:.4f} ms by "
+          f"{bulk_bound['bound_by']}, {bulk_bound['bound_ms'] / bulk_ms:.1%} of it reached "
+          f"({lap(clock):.1f} s)", flush=True)
 
     # 5. main path: the fusionnet online loop at 320x256
     cfg = TestConfig()
@@ -551,7 +897,11 @@ def main():
         if not (loss_gap <= STEP_RTOL and grad_gap <= grad_tol and stat_gap <= STEP_RTOL):
             raise AssertionError("the card's train step disagrees with the CPU's")
 
-    # 12. results: the forward at the online shape (its main path), the
+    # 12. bulk evaluation and TSDF reconstruction at TestConfig
+    with tempfile.TemporaryDirectory() as tmp:
+        bulk = bulk_phases(torch, ps, device, cfg, card, clock, tmp)
+
+    # 13. results: the forward at the online shape (its main path), the
     # backward at the training shape
     fwd_launches, bwd_launches = runs["fusionnet"][:2]
     online_ms, online_plain_ms, online_bound, online_single_ms = timing[ONLINE]
@@ -584,6 +934,14 @@ def main():
         "bound_ms_640x480": big_bound["bound_ms"],
         "ms_training": train_fwd_ms,
         "bound_ms_training": train_fwd_bound["bound_ms"],
+        "shape_bulk": dict(zip("BVCHWP", BULK)),
+        "launches_bulk": bulk["launches"],
+        "max_abs_err_bulk": bulk_err,
+        "ms_bulk": bulk_ms,
+        "plain_ms_bulk": bulk_plain_ms,
+        "bound_ms_bulk": bulk_bound["bound_ms"],
+        "bound_by_bulk": bulk_bound["bound_by"],
+        "share_of_bound_bulk": bulk_bound["bound_ms"] / bulk_ms,
     }, {
         "name": "plane_sweep_backward",
         "route": "cuda",

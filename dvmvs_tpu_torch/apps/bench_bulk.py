@@ -1,0 +1,205 @@
+"""Keyframes per second of every bulk evaluation mode of
+``apps/run_testing.py`` on one GPU, over scenes long enough that batches are
+full and each timed run lasts seconds.
+
+The scenes: ``--scenes`` SynthScene walks (seeds 21, 22, ...) of
+``--frames`` frames at ``--step`` m a frame, so that the keyframe buffer
+keeps most frames, rendered at 640x480 like ScanNet by spawned workers,
+written as scene folders (``data/scene_folders.py``) and indexed by
+``simulate_keyframe_buffer`` (nmeas 2). Every frame is decoded, cropped and
+resized to 320x256 once before any timing, and no ground truth is read, so
+the numbers are the device path and the driver, not the PNG decode. Seeded
+random weights (the work does not depend on them), ``TestConfig``, TF32 off.
+
+Modes: pairnet sequential (``evaluate_scene``), batched B=``--batch`` with a
+readback every batch, the same with ``--chunk`` batches queued between
+readbacks, and with a bfloat16 bank; fusionnet sequential and lockstep over
+all the scenes (``evaluate_scenes_batched_fusion``) in the same three
+variants. Each mode is warmed up once on its first keyframes, then timed
+``--reps`` times; within a repetition the modes run in turn, so that drift
+of the host touches all of them alike. Per mode it prints the median
+keyframes/s with the minimum, maximum and spread ((max - min) / median),
+the peak device memory, the forward kernel's launches per run and the
+largest relative depth difference to the sequential run; then the card's
+``name, power.limit`` and, with ``--json``, writes it all there.
+
+Run on the card from the repo root: ``python -m
+dvmvs_tpu_torch.apps.bench_bulk [--reps 5] [--json
+chiprun_out/bench_bulk.json]``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from dvmvs_tpu_torch.apps import run_testing as rt
+from dvmvs_tpu_torch.apps.engine import InferenceEngine
+from dvmvs_tpu_torch.apps.simulate_keyframe_buffer import simulate_dataset
+from dvmvs_tpu_torch.config import TestConfig
+from dvmvs_tpu_torch.data.scene_folders import write_scene_folders
+from dvmvs_tpu_torch.ops import plane_sweep
+
+DATASET, FRAME = "synth640", (640, 480)
+
+
+def make_scenes(root: str, n_scenes: int, n_frames: int, step: float, workers: int):
+    """Scene folders and index files; returns [(folder, index file)]."""
+    folders = write_scene_folders(os.path.join(root, DATASET),
+                                  [(21 + i, n_frames) for i in range(n_scenes)], FRAME, step,
+                                  workers=workers)
+    simulate_dataset(os.path.join(root, DATASET), os.path.join(root, "indices"), 2)
+    return [(f, os.path.join(root, "indices", f"keyframe+{DATASET}+{os.path.basename(f)}+nmeas+2"))
+            for f in folders]
+
+
+def modes(pair, fusion, jobs, assets, cfg, batch: int, chunk: int):
+    """name -> fn(max_frames) returning the depth maps of every scene in
+    order."""
+    cache = {os.path.abspath(f): a for (f, _), a in zip(jobs, assets)}
+
+    def per_scene(fn):
+        return lambda m: [d for (f, i), a in zip(jobs, assets) for d in fn(f, i, a, m)]
+
+    def batched(scan, dtype):
+        return per_scene(lambda f, i, a, m: rt.evaluate_scene_batched(
+            pair, f, i, cfg, batch, evaluate=False, max_frames=m, assets=a, scan_chunk=scan,
+            bank_dtype=dtype)[0])
+
+    def lockstep(scan, dtype):
+        return lambda m: [d for p, _ in rt.evaluate_scenes_batched_fusion(
+            fusion, jobs, cfg, evaluate=False, max_frames=m, asset_cache=cache, scan_chunk=scan,
+            bank_dtype=dtype) for d in p]
+
+    n = len(jobs)
+    return {
+        "pairnet sequential": per_scene(lambda f, i, a, m: rt.evaluate_scene(
+            pair, f, i, cfg, evaluate=False, max_frames=m, assets=a)[0]),
+        f"pairnet batched B={batch}": batched(0, "f32"),
+        f"pairnet batched B={batch} chunk {chunk}": batched(chunk, "f32"),
+        f"pairnet batched B={batch} bf16 bank": batched(0, "bf16"),
+        "fusionnet sequential": per_scene(lambda f, i, a, m: rt.evaluate_scene(
+            fusion, f, i, cfg, evaluate=False, max_frames=m, assets=a)[0]),
+        f"fusionnet lockstep x{n}": lockstep(0, "f32"),
+        f"fusionnet lockstep x{n} chunk {chunk}": lockstep(chunk, "f32"),
+        f"fusionnet lockstep x{n} bf16 bank": lockstep(0, "bf16"),
+    }
+
+
+def timed(fn, cuda: bool):
+    """fn() with the forward launch count set to 0 just before: (result,
+    seconds to the last readback, peak MiB (0 off the card), forward
+    launches)."""
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    plane_sweep.launch_count = 0
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 20 if cuda else 0.0,
+            plane_sweep.launch_count)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--scenes", type=int, default=3)
+    ap.add_argument("--frames", type=int, default=200, help="frames a scene")
+    ap.add_argument("--step", type=float, default=0.2, help="metres of walk a frame")
+    ap.add_argument("--batch", type=int, default=8, help="pairnet keyframes a batch")
+    ap.add_argument("--chunk", type=int, default=4, help="steps queued between readbacks")
+    ap.add_argument("--reps", type=int, default=5, help="timed runs a mode")
+    ap.add_argument("--warmup-frames", type=int, default=16,
+                    help="keyframes a scene in each mode's warm-up run")
+    ap.add_argument("--workers", type=int, default=8, help="render processes")
+    ap.add_argument("--width", type=int, default=None, help="test width (default TestConfig's)")
+    ap.add_argument("--height", type=int, default=None,
+                    help="test height (default TestConfig's)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu (a dry run)")
+    ap.add_argument("--json", default=None, help="write the report here too")
+    args = ap.parse_args(argv)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TestConfig(**{k: v for k, v in (("image_width", args.width),
+                                          ("image_height", args.height)) if v is not None})
+    pair = InferenceEngine("pairnet", cfg, device=args.device, seed=0)
+    fusion = InferenceEngine("fusionnet", cfg, device=args.device, seed=0)
+    cuda = pair.device.type == "cuda"
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0] if cuda else "cpu"
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        jobs = make_scenes(tmp, args.scenes, args.frames, args.step, args.workers)
+        render_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        assets = []
+        for folder, _ in jobs:
+            a = rt.SceneAssets(folder, cfg, evaluate=False, cache_frames=args.frames)
+            for name in a.image_filenames:
+                a.image(name)
+            assets.append(a)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (args.scenes * args.frames)
+        keyframes = [sum(line != "TRACKING LOST" for line in rt.read_index(i)) for _, i in jobs]
+        n_kf = sum(keyframes)
+        print(f"[scenes] {args.scenes} scenes of {args.frames} frames at {FRAME[0]}x{FRAME[1]} "
+              f"({', '.join(map(str, keyframes))} keyframes) rendered and indexed in "
+              f"{render_s:.1f} s; decode, crop and resize to {cfg.image_width}x"
+              f"{cfg.image_height} {decode_ms:.1f} ms a frame", flush=True)
+
+        runs = modes(pair, fusion, jobs, assets, cfg, args.batch, args.chunk)
+        for fn in runs.values():
+            fn(args.warmup_frames)
+        report = {name: {"keyframes_per_s": [], "peak_mib": 0.0, "launches": None}
+                  for name in runs}
+        depths = {}
+        for rep in range(args.reps):
+            for name, fn in runs.items():
+                out, seconds, peak, launches = timed(lambda: fn(None), cuda)
+                if len(out) != n_kf:
+                    raise AssertionError(f"{name}: {len(out)} depth maps of {n_kf}")
+                r = report[name]
+                r["keyframes_per_s"].append(n_kf / seconds)
+                r["peak_mib"] = max(r["peak_mib"], peak)
+                r["launches"] = launches
+                if rep == 0:
+                    depths[name] = out
+            print(f"[rep {rep}] " + ", ".join(
+                f"{n} {r['keyframes_per_s'][-1]:.1f}" for n, r in report.items()), flush=True)
+
+    for name, r in report.items():
+        rates = np.asarray(r["keyframes_per_s"])
+        base = depths["pairnet sequential" if name.startswith("pairnet")
+                      else "fusionnet sequential"]
+        r.update(median=float(np.median(rates)), min=float(rates.min()), max=float(rates.max()),
+                 spread=float((rates.max() - rates.min()) / np.median(rates)),
+                 max_rel_gap=max(float(np.max(np.abs(g - w) / w))
+                                 for g, w in zip(depths[name], base)))
+        print(f"[bulk] {name}: {n_kf} keyframes, median {r['median']:.2f} keyframes/s (min "
+              f"{r['min']:.2f}, max {r['max']:.2f}, spread {r['spread']:.1%} over {args.reps} "
+              f"runs), peak {r['peak_mib']:.1f} MiB, forward launches {r['launches']} a run, "
+              f"max relative depth gap to sequential {r['max_rel_gap']:.3e}", flush=True)
+    print(card)
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump({"card": card, "keyframes": keyframes, "args": vars(args),
+                       "modes": report}, f, indent=1)
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -9,10 +9,15 @@ keyframe.
   - ``predict_stream`` takes preprocessed frames from memory.
   - ``predict_scene`` and ``main`` read a scene directory (``images/*.png``,
     ``depth/*.png``, ``poses.txt``, ``K.txt``) with the port's own PNG
-    reader (``data/io.py``, no OpenCV). Frames stored at the test size need
-    no resize; any other size needs cv2 (``data/preprocess.py``).
+    reader (``data/io.py``) and resize (``data/preprocess.py``), without
+    OpenCV, whatever size the frames are stored at.
+  - ``LiveTSDF`` (``--live-tsdf MESH.ply``) fuses every predicted depth into
+    a TSDF volume on the device inside the loop (``ops/tsdf.py``) and
+    writes the coloured mesh at the end.
 
-Run: ``python -m dvmvs_tpu_torch.apps.run_testing_online --scene DIR``.
+Run: ``python -m dvmvs_tpu_torch.apps.run_testing_online --scene DIR
+[--live-tsdf out.ply] [--checkpoint model.pt]`` (on the card; ``--device
+cpu`` asks for the CPU).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import os
-from typing import Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -28,8 +33,59 @@ from dvmvs_tpu_torch.apps.engine import InferenceEngine
 from dvmvs_tpu_torch.config import MEAN_RGB, SCALE_RGB, STD_RGB, TestConfig
 from dvmvs_tpu_torch.data.io import load_depth_png, load_image, load_scene
 from dvmvs_tpu_torch.data.preprocess import PreprocessImage
+from dvmvs_tpu_torch.ops.tsdf import TSDFVolume
+from dvmvs_tpu_torch.utils.checkpoint import load_checkpoint
 from dvmvs_tpu_torch.utils.keyframe_buffer import KeyframeBuffer
+from dvmvs_tpu_torch.utils.native import write_mesh_ply
 from dvmvs_tpu_torch.utils.results import InferenceTimer, save_results
+
+
+class LiveTSDF:
+    """Streaming TSDF fusion of the predicted depths during online inference.
+
+    A live system cannot see the trajectory in advance, so unless explicit
+    ``bounds`` ((3, 2) min/max per axis) are given the volume is allocated
+    at the first fused keyframe as a cube of half-extent ``max_depth + 2 *
+    voxel_size`` around that camera position. Frames that wander outside
+    stop contributing (voxels outside the volume are never touched). Depths
+    beyond ``max_depth`` are dropped. Runs on the card unless ``device="cpu"``.
+    """
+
+    def __init__(self, voxel_size: float = 0.05, max_depth: float = 3.0, bounds=None,
+                 device="cuda"):
+        self.voxel_size = float(voxel_size)
+        self.max_depth = float(max_depth)
+        self._bounds = None if bounds is None else np.asarray(bounds, float)
+        self.device = device
+        self.volume = None
+        self.n_integrated = 0
+
+    def integrate(self, color_im: np.ndarray, depth: np.ndarray, K: np.ndarray,
+                  pose: np.ndarray):
+        """``color_im`` (H, W, 3) 0..255 must be aligned with ``depth`` and
+        ``K`` (the same crop and resize: the driver reuses its
+        PreprocessImage)."""
+        if self.volume is None:
+            if self._bounds is None:
+                c = pose[:3, 3]
+                r = self.max_depth + 2 * self.voxel_size
+                self._bounds = np.stack([c - r, c + r], axis=1)
+            self.volume = TSDFVolume(self._bounds, voxel_size=self.voxel_size,
+                                     device=self.device)
+        d = depth.copy()
+        d[d > self.max_depth] = 0.0
+        self.volume.integrate(np.clip(color_im, 0, 255).astype(np.uint8), d, K, pose)
+        self.n_integrated += 1
+
+    def save_mesh(self, path: str):
+        if self.volume is None:
+            print("live-tsdf: no frames integrated, no mesh written")
+            return
+        verts, faces, norms, colors = self.volume.get_mesh()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        write_mesh_ply(path, verts, faces, norms, colors)
+        print(f"live-tsdf: {self.n_integrated} keyframes fused -> {len(verts)} vertices / "
+              f"{len(faces)} faces -> {path}")
 
 
 def normalize_rgb(image: np.ndarray) -> np.ndarray:
@@ -42,13 +98,16 @@ def normalize_rgb(image: np.ndarray) -> np.ndarray:
 def predict_stream(engine: InferenceEngine, frames: Iterable[np.ndarray],
                    poses: Sequence[np.ndarray], K: np.ndarray, cfg: TestConfig,
                    max_frames: Optional[int] = None,
-                   timer: Optional[InferenceTimer] = None) -> Tuple[List[np.ndarray], List[int]]:
+                   timer: Optional[InferenceTimer] = None,
+                   on_prediction: Optional[Callable[[int, np.ndarray], None]] = None
+                   ) -> Tuple[List[np.ndarray], List[int]]:
     """Stream preprocessed frames (H, W, 3) with camera-to-world poses and
     intrinsics K (at the frame size) through the keyframe buffer.
 
     Returns (depth per predicted keyframe, index of each predicted frame).
     Stops after ``max_frames`` predictions when given; ``timer`` times each
-    ``encode_and_predict``.
+    ``encode_and_predict``; ``on_prediction(frame index, depth)`` is called
+    after each prediction.
     """
     buf = KeyframeBuffer(
         buffer_size=cfg.keyframe_buffer_size,
@@ -83,13 +142,17 @@ def predict_stream(engine: InferenceEngine, frames: Iterable[np.ndarray],
         buf.buffer[-1] = (pose, f_half)
         predictions.append(depth)
         indices.append(i)
+        if on_prediction is not None:
+            on_prediction(i, depth)
     return predictions, indices
 
 
 def predict_scene(engine: InferenceEngine, scene_path: str, cfg: TestConfig,
-                  evaluate: bool = True, max_frames: Optional[int] = None):
-    """Predict every keyframe of a scene directory. Returns (predictions,
-    ground-truth depths of the predicted frames, or None)."""
+                  evaluate: bool = True, max_frames: Optional[int] = None,
+                  live_tsdf: Optional[LiveTSDF] = None):
+    """Predict every keyframe of a scene directory, fusing each depth into
+    ``live_tsdf`` when given. Returns (predictions, ground-truth depths of
+    the predicted frames, or None)."""
     scene = load_scene(scene_path)
     raw = (load_image(f) for f in scene.image_filenames[: len(scene.poses)])
     first = next(raw)
@@ -97,13 +160,24 @@ def predict_scene(engine: InferenceEngine, scene_path: str, cfg: TestConfig,
         K=scene.K, old_width=first.shape[1], old_height=first.shape[0],
         new_width=cfg.image_width, new_height=cfg.image_height,
         distortion_crop=cfg.distortion_crop, perform_crop=cfg.perform_crop)
-    frames = (preprocessor.apply_rgb(image, SCALE_RGB, MEAN_RGB, STD_RGB)
-              for image in itertools.chain([first], raw))
+    current = {}  # the raw frame being streamed, for the TSDF colours
+
+    def frames():
+        for image in itertools.chain([first], raw):
+            current["raw"] = image
+            yield preprocessor.apply_rgb(image, SCALE_RGB, MEAN_RGB, STD_RGB)
+
     K = preprocessor.get_updated_intrinsics().astype(np.float32)
 
+    def fuse(i, depth):
+        color = preprocessor.apply_rgb(current["raw"], 1.0, [0.0] * 3, [1.0] * 3,
+                                       normalize_colors=False)
+        live_tsdf.integrate(color, depth, K, scene.poses[i])
+
     timer = InferenceTimer()
-    predictions, indices = predict_stream(engine, frames, scene.poses, K, cfg,
-                                          max_frames=max_frames, timer=timer)
+    predictions, indices = predict_stream(engine, frames(), scene.poses, K, cfg,
+                                          max_frames=max_frames, timer=timer,
+                                          on_prediction=fuse if live_tsdf is not None else None)
     timer.print_statistics()
     reference_depths = None
     if evaluate and scene.depth_filenames:
@@ -113,12 +187,16 @@ def predict_scene(engine: InferenceEngine, scene_path: str, cfg: TestConfig,
     return predictions, reference_depths
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__)
+def main(argv: Optional[Sequence[str]] = None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", choices=["pairnet", "fusionnet"], default="fusionnet")
     ap.add_argument("--scene", required=True)
+    ap.add_argument("--checkpoint", default=None,
+                    help="the port's own checkpoint (utils/checkpoint.py)")
     ap.add_argument("--output", default="results")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--n-measurement-frames", type=int, default=2)
     ap.add_argument("--no-evaluate", action="store_true")
     ap.add_argument("--max-frames", type=int, default=None)
@@ -126,7 +204,16 @@ def main():
                     help="test image width (default: config default)")
     ap.add_argument("--height", type=int, default=None,
                     help="test image height (default: config default)")
-    args = ap.parse_args()
+    ap.add_argument("--live-tsdf", default=None, metavar="MESH.ply",
+                    help="fuse the predicted depths into a TSDF volume on the device inside "
+                         "the loop; write the coloured mesh here at the end")
+    ap.add_argument("--tsdf-voxel-size", type=float, default=0.05)
+    ap.add_argument("--tsdf-max-depth", type=float, default=3.0)
+    ap.add_argument("--tsdf-bounds", type=float, nargs=6, default=None,
+                    metavar=("X0", "X1", "Y0", "Y1", "Z0", "Z1"),
+                    help="explicit volume bounds (default: a cube of half-extent max-depth "
+                         "around the first keyframe)")
+    args = ap.parse_args(argv)
 
     size_kw = {}
     for flag, key in ((args.width, "image_width"), (args.height, "image_height")):
@@ -137,6 +224,14 @@ def main():
             size_kw[key] = flag
     cfg = TestConfig(n_measurement_frames=args.n_measurement_frames, **size_kw)
     engine = InferenceEngine(args.model, cfg, device=args.device)
+    if args.checkpoint:
+        load_checkpoint(args.checkpoint, engine.model)
+    live_tsdf = None
+    if args.live_tsdf:
+        bounds = (None if args.tsdf_bounds is None
+                  else np.asarray(args.tsdf_bounds, float).reshape(3, 2))
+        live_tsdf = LiveTSDF(voxel_size=args.tsdf_voxel_size, max_depth=args.tsdf_max_depth,
+                             bounds=bounds, device=args.device)
 
     dataset_name = os.path.basename(os.path.dirname(os.path.normpath(args.scene)))
     scene_name = os.path.basename(os.path.normpath(args.scene))
@@ -146,8 +241,10 @@ def main():
     print("Predicting with System:", system_name)
     predictions, gts = predict_scene(engine, args.scene, cfg,
                                      evaluate=not args.no_evaluate,
-                                     max_frames=args.max_frames)
+                                     max_frames=args.max_frames, live_tsdf=live_tsdf)
     save_results(predictions, gts, system_name, scene_name, args.output)
+    if live_tsdf is not None:
+        live_tsdf.save_mesh(args.live_tsdf)
 
 
 if __name__ == "__main__":

@@ -9,6 +9,8 @@ PNGs are decoded with ``zlib`` and NumPy alone (``read_png``): the IHDR,
 IDAT and IEND chunks (CRCs checked; other chunks skipped), the five scanline
 filters, 8-bit gray, RGB and RGBA and 16-bit (big-endian) gray, without
 interlacing. Anything else raises ``ValueError`` naming the file.
+``write_png`` writes 8-bit RGB and 8/16-bit gray PNGs (filter 0), so scene
+folders can be made where there is no OpenCV.
 """
 
 from __future__ import annotations
@@ -91,11 +93,39 @@ def read_png(path: str) -> np.ndarray:
     filters = rows[:, 0]
     if filters.max(initial=0) > 4:
         raise ValueError(f"{path}: unknown scanline filter {filters.max()}")
-    image = _unfilter(rows[:, 1:].reshape(height, width, bpp), filters)
+    filtered = rows[:, 1:].reshape(height, width, bpp)
+    # rows that all have filter 0 (as write_png stores them) hold the bytes as they are
+    image = _unfilter(filtered, filters) if filters.any() else filtered.copy()
     if depth == 16:
         image = image.reshape(height, width * 2).view(">u2").astype(np.uint16)
     image = image.reshape(height, width, channels)
     return image[:, :, 0] if channels == 1 else image
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def write_png(path: str, image: np.ndarray, level: int = 6):
+    """Write an 8-bit RGB (H, W, 3) uint8 or a gray (H, W) uint8 / uint16
+    image as a PNG (every scanline filter 0, zlib ``level``): the counterpart
+    of ``cv2.imwrite`` for the canonical scene layout, whose RGB frames and
+    millimetre depth maps ``read_png`` and cv2 read back unchanged."""
+    if image.ndim == 3 and image.shape[2] == 3 and image.dtype == np.uint8:
+        colour, depth = 2, 8
+    elif image.ndim == 2 and image.dtype in (np.uint8, np.uint16):
+        colour, depth = 0, 8 * image.dtype.itemsize
+    else:
+        raise ValueError(f"write_png: want (H, W, 3) uint8 or (H, W) uint8/uint16, got "
+                         f"{image.dtype} {image.shape}")
+    height, width = image.shape[:2]
+    rows = np.ascontiguousarray(image, image.dtype.newbyteorder(">")).view(np.uint8)
+    raw = np.concatenate([np.zeros((height, 1), np.uint8), rows.reshape(height, -1)], axis=1)
+    header = struct.pack(">IIBBBBB", width, height, depth, colour, 0, 0, 0)
+    data = (PNG_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + _chunk(b"IEND", b""))
+    with open(path, "wb") as fh:
+        fh.write(data)
 
 
 def load_image(path: str) -> np.ndarray:

@@ -305,3 +305,88 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, freeze_bn):
     grad_gap, stat_gap = cs.train_step_gaps(torch, cpu, card, freeze_bn)
     assert grad_gap <= (cs.FROZEN_GRAD_TOL if freeze_bn else cs.TRAIN_GRAD_L2)
     assert stat_gap <= cs.STEP_RTOL
+
+
+# --- bulk evaluation and TSDF ---
+
+
+def test_kernel_at_the_bulk_shape(cuda_device):
+    """B=8, V=2 (the batched pairnet shape): a geometry per element and the
+    second view masked in every other one, launched once."""
+    ref, meas, mats, w = cs.bulk_case(torch, tps, 4, cuda_device)
+    want = tps.plane_sweep_multiview_plain(ref, meas, mats, w)
+    before = tps.launch_count
+    got = tps.plane_sweep_multiview(ref, meas, mats, w)
+    torch.cuda.synchronize()
+    assert tps.launch_count == before + 1
+    assert (got - want).abs().max().item() <= ATOL[True]
+
+
+def _bulk_inputs(engine, rs, T, B, n_images):
+    """Device-resident frames and bank, and T steps of indices and poses."""
+    images = engine.images(rs.randn(n_images, 64, 96, 3).astype(np.float32))
+    bank = engine.encode_batch(images)
+    poses = np.tile(np.eye(4, dtype=np.float32), (T, B, 3, 1, 1))
+    poses[..., 0, 3] = 0.12 * rs.randint(0, 6, (T, B, 3))
+    xs = {"ref_idx": engine.upload_index(rs.randint(0, n_images, (T, B))),
+          "meas_idx": engine.upload_index(rs.randint(0, n_images, (T, B, 2))),
+          "ref_pose": engine.upload(poses[:, :, 0]), "meas_pose": engine.upload(poses[:, :, 1:]),
+          "view_mask": engine.upload(np.stack([np.ones((T, B)), rs.randint(0, 2, (T, B))], -1)),
+          "keep": engine.upload((rs.rand(T, B) > 0.3).astype(np.float32))}
+    K = engine.upload(np.tile([[70.0, 0, 48], [0, 70.0, 32], [0, 0, 1]], (B, 1, 1)))
+    return bank, images, K, xs
+
+
+@pytest.mark.parametrize("kind", ["pairnet", "fusionnet"])
+def test_bulk_steps_on_the_card_match_the_cpu(cuda_device, kind):
+    """T=3 device-resident steps of B=4 (index_select from the bank, keep
+    masks for fusionnet) on the card, queued without a host sync, against
+    the same steps on the CPU (same seeded weights, TF32 off)."""
+    from dvmvs_tpu_torch.apps.engine import InferenceEngine
+
+    cfg = config.TestConfig(image_width=96, image_height=64,
+                            depth=config.DepthConfig(0.25, 20.0, 16))
+    out = {}
+    for device in ("cpu", cuda_device):
+        engine = InferenceEngine(kind, cfg, device=device, seed=6)
+        bank, images, K, xs = _bulk_inputs(engine, np.random.RandomState(7), 3, 4, 6)
+        torch.cuda.synchronize()
+        before = tps.launch_count
+        if device != "cpu":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            if kind == "pairnet":
+                depth = engine.predict_pair_steps(bank, images, K, xs)
+            else:
+                _, depth = engine.fusion_steps(bank, images, K, engine.init_batch_state(4), xs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out[str(device)] = depth.cpu().numpy()
+        if device != "cpu":
+            assert tps.launch_count - before == 3
+    got, want = out[str(cuda_device)], out["cpu"]
+    assert got.shape == (3, 4, 64, 96) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_tsdf_integrate_on_the_card_matches_the_cpu(cuda_device):
+    """Colour and weight equal, tsdf within 1e-5: the same float32
+    operations on either device."""
+    from dvmvs_tpu_torch.ops.tsdf import TSDFVolume
+
+    rs = np.random.RandomState(8)
+    K = np.array([[50.0, 0, 40.3], [0, 50.0, 29.7], [0, 0, 1]], np.float32)
+    vols = [TSDFVolume(np.array([[-1.013, 1.0], [-0.987, 1.0], [0.31, 3.0]]), 0.037, device=d)
+            for d in ("cpu", cuda_device)]
+    for i in range(4):
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, 3] = [0.03 * i, -0.02 * i, -0.5]
+        depth = rs.uniform(1.0, 3.0, (60, 80)).astype(np.float32)
+        color = rs.randint(0, 256, (60, 80, 3)).astype(np.uint8)
+        for v in vols:
+            v.integrate(color, depth, K, pose)
+    (t_cpu, c_cpu), (t_card, c_card) = (v.get_volume() for v in vols)
+    np.testing.assert_array_equal(c_card, c_cpu)
+    np.testing.assert_array_equal(vols[1].weight.cpu().numpy(), vols[0].weight.numpy())
+    np.testing.assert_allclose(t_card, t_cpu, atol=1e-5)
+    assert (vols[0].weight.numpy() > 0).sum() > 1000

@@ -109,15 +109,20 @@ def test_identity_size_preprocessing_equals_cv2():
 
 
 def test_resize_needs_cv2(monkeypatch):
+    """Whether the resize needs cv2: it does not. With cv2 unimportable (as
+    on a machine without OpenCV) the port gives the JAX package's frames."""
     K = np.array([[50.0, 0, 32.0], [0, 50.0, 32.0], [0, 0, 1]])
-    port = PreprocessImage(K, 2 * SIZE, 2 * SIZE, SIZE, SIZE)
-    depth = np.ones((2 * SIZE, 2 * SIZE), np.float32)
-    np.testing.assert_array_equal(port.apply_depth(depth),
-                                  JPreprocessImage(K, 2 * SIZE, 2 * SIZE, SIZE, SIZE)
-                                  .apply_depth(depth))
-    monkeypatch.setitem(sys.modules, "cv2", None)  # as on a machine without OpenCV
-    with pytest.raises(ImportError, match="needs OpenCV"):
-        port.apply_depth(depth)
+    rs = np.random.RandomState(1)
+    port = PreprocessImage(K, 2 * SIZE + 6, 2 * SIZE, SIZE, SIZE)
+    ref = JPreprocessImage(K, 2 * SIZE + 6, 2 * SIZE, SIZE, SIZE)
+    depth = rs.uniform(0.5, 5.0, (2 * SIZE, 2 * SIZE + 6)).astype(np.float32)
+    image = rs.randint(0, 256, (2 * SIZE, 2 * SIZE + 6, 3)).astype(np.float32)
+    want = (ref.apply_depth(depth), ref.apply_rgb(image, 255.0, [0.4] * 3, [0.2] * 3))
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    got = (port.apply_depth(depth), port.apply_rgb(image, 255.0, [0.4] * 3, [0.2] * 3))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
 
 
 def test_device_prefetch_on_cpu_and_early_close(corpus):
@@ -285,3 +290,30 @@ def test_load_scene_matches_jax(tmp_path):
     assert want.depth_filenames is None and got.name == want.name
     np.testing.assert_array_equal(got.K, want.K)
     np.testing.assert_array_equal(got.poses, want.poses)
+
+
+def test_write_png_reads_back_with_cv2_and_read_png(tmp_path):
+    """write_png's RGB frames and 16-bit millimetre depth maps (the scene
+    layout, written without cv2) read back unchanged by cv2 and by read_png;
+    bad input raises."""
+    import cv2
+
+    from dvmvs_tpu_torch.data.io import load_depth_png, read_png, write_png
+
+    rs = np.random.RandomState(11)
+    rgb = rs.randint(0, 256, (37, 53, 3)).astype(np.uint8)
+    depth_mm = rs.randint(0, 65536, (37, 53)).astype(np.uint16)
+    gray = rs.randint(0, 256, (5, 7)).astype(np.uint8)
+    for name, image in (("rgb.png", rgb), ("depth.png", depth_mm), ("gray.png", gray)):
+        path = str(tmp_path / name)
+        write_png(path, image, level=1 if name == "gray.png" else 6)
+        np.testing.assert_array_equal(read_png(path), image)
+        back = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        if image.ndim == 3:
+            back = cv2.cvtColor(back, cv2.COLOR_BGR2RGB)
+        assert back.dtype == image.dtype
+        np.testing.assert_array_equal(back, image)
+    np.testing.assert_array_equal(load_depth_png(str(tmp_path / "depth.png")),
+                                  depth_mm.astype(np.float32) / 1000.0)
+    with pytest.raises(ValueError):
+        write_png(str(tmp_path / "bad.png"), rgb.astype(np.float32))

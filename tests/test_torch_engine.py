@@ -41,6 +41,16 @@ from tests.test_drivers_e2e import (  # noqa: F401 (fixtures)
 RTOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the test run shares the host's cores among its
+    workers, and torch's default of a thread a core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def numpy_variables(engine):
     return jax.tree.map(np.asarray, engine.variables)
 

@@ -1,8 +1,10 @@
 """Package hygiene of dvmvs_tpu_torch: it imports neither jax nor OpenCV
 nor any module of the JAX package, and neither it nor chip_smoke.py names
-one in an import or a path; its kernel build reports compiler failures,
-builds all sources at once and rebuilds when an included header changes,
-and chip_smoke.py refuses to run without a GPU.
+one in an import or a path; it never loads the native library tracked in
+native/ (built elsewhere for another CPU) but builds its own; its kernel
+build reports compiler failures, builds all sources at once and rebuilds
+when an included header changes, and chip_smoke.py refuses to run without a
+GPU.
 """
 
 import ast
@@ -39,7 +41,50 @@ def test_port_imports_no_jax_or_cv2():
     result = json.loads(out)
     assert result["bad"] == []
     assert TRAINING_MODULES <= set(result["names"])  # the training slice was walked too
-    assert len(result["names"]) >= 30
+    assert BULK_MODULES <= set(result["names"])
+    assert len(result["names"]) >= 35
+
+
+BULK_MODULES = {f"dvmvs_tpu_torch.{m}" for m in (
+    "apps.run_testing", "apps.run_tsdf", "apps.simulate_keyframe_buffer", "ops.tsdf",
+    "utils.native", "apps.bench_bulk", "data.scene_folders")}
+
+
+def test_bulk_and_tsdf_paths_load_no_jax_cv2_or_tracked_native_library(tmp_path):
+    """Run the TSDF path (integrate, marching cubes, a PLY) with the bulk
+    modules imported: no jax, flax, cv2 or dvmvs_tpu module is loaded, and
+    the shared library in use is the port's own build, not
+    native/libdvmvs_native.so."""
+    code = textwrap.dedent(f"""
+        import json, sys
+        import numpy as np
+        import dvmvs_tpu_torch.apps.run_testing, dvmvs_tpu_torch.apps.run_tsdf
+        import dvmvs_tpu_torch.apps.simulate_keyframe_buffer
+        from dvmvs_tpu_torch.ops.tsdf import TSDFVolume
+        from dvmvs_tpu_torch.utils import native
+        from pathlib import Path
+        native.BUILD_ROOT = Path({str(tmp_path / "build")!r})
+        vol = TSDFVolume(np.array([[-0.5, 0.5], [-0.5, 0.5], [0.5, 1.5]]), 0.2, device="cpu")
+        K = np.array([[14.0, 0, 8], [0, 14.0, 6], [0, 0, 1]], np.float32)
+        pose = np.eye(4, dtype=np.float32); pose[2, 3] = -1.0
+        vol.integrate(np.full((12, 16, 3), 200, np.uint8), np.full((12, 16), 1.8, np.float32),
+                      K, pose)
+        verts, faces, norms, rgb = vol.get_mesh()
+        native.write_mesh_ply({str(tmp_path / "m.ply")!r}, verts, faces, norms, rgb)
+        maps = open("/proc/self/maps").read()
+        print(json.dumps({{
+            "bad": sorted(m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "dvmvs_tpu")),
+            "libs": sorted({{l.split()[-1] for l in maps.splitlines() if "dvmvs_native" in l}}),
+            "verts": len(verts)}}))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    result = json.loads(out.splitlines()[-1])
+    assert result["bad"] == [] and result["verts"] > 0
+    assert len(result["libs"]) == 1
+    assert result["libs"][0].startswith(str(tmp_path / "build"))
+    assert not any("native/libdvmvs_native.so" in lib for lib in result["libs"])
 
 
 TRAINING_MODULES = {f"dvmvs_tpu_torch.{m}" for m in (
@@ -85,11 +130,28 @@ def _port_sources():
 
 def test_port_sources_name_no_module_or_path_of_the_jax_package():
     """chip_smoke.py imports inside main(), so importing it proves nothing:
-    the sources of the port and of chip_smoke.py are read instead."""
+    the sources of the port and of chip_smoke.py are read instead. They
+    name no path of the tracked native library either."""
     sources = _port_sources()
-    assert len(sources) >= 40
-    found = {os.path.relpath(p, ROOT): jax_package_references(open(p).read()) for p in sources}
+    assert len(sources) >= 45
+    assert {os.path.join(ROOT, "dvmvs_tpu_torch", *m.split(".")[1:]) + ".py"
+            for m in BULK_MODULES} <= set(sources)
+    found = {os.path.relpath(p, ROOT): jax_package_references(open(p).read())
+             + tracked_library_references(open(p).read()) for p in sources}
     assert {p: refs for p, refs in found.items() if refs} == {}
+
+
+def tracked_library_references(source: str) -> list:
+    """String constants that name the library tracked in
+    native/, which the port must not load."""
+    return [f"line {node.lineno}: {node.value!r}" for node in ast.walk(ast.parse(source))
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and "libdvmvs_native.so" in node.value]
+
+
+def test_the_library_scan_finds_references():
+    assert tracked_library_references("lib = ctypes.CDLL('native/libdvmvs_native.so')")
+    assert tracked_library_references("p = NATIVE / 'libdvmvs_native.so'")
 
 
 @pytest.mark.parametrize("snippet", [

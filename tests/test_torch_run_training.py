@@ -16,6 +16,7 @@ from dvmvs_tpu_torch.apps import run_training as rt
 from dvmvs_tpu_torch.models.fusionnet import FusionNet
 from dvmvs_tpu_torch.utils import checkpoint
 from tests.test_torch_data import write_corpus
+from tests.test_torch_engine import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SMALL = ["--image-size", "64", "64", "--batch-size", "2", "--max-steps", "1",
          "--print-frequency", "1", "--device", "cpu"]

@@ -54,6 +54,7 @@ from dvmvs_tpu_torch.parallel import train as tt
 from dvmvs_tpu_torch.utils import weights as tw
 from tests.conftest import random_pose
 from tests.test_torch_models import _randomize_bn
+from tests.test_torch_engine import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H = W = 64
 S, B, P = 3, 2, 16
