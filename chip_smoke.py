@@ -32,7 +32,13 @@ backward, one nvcc each, in parallel) and drives both paths of the port:
     feature row, swapped views) shown to break those limits, the first
     keyframes against the CPU, then ``run_tsdf`` on saved predictions on the
     card and the CPU, the integrate's time at 1.26M voxels, and the online
-    driver with a live TSDF volume.
+    driver with a live TSDF volume;
+  - baselines: the forward kernel in L1 mode at MVDepthNet's and GP-MVS's
+    shape (normalised RGB, C=3, at 256x320, planes at 0.5-50 m) against its
+    plain version and timed beside its bound, then MVDepthNet, GP-MVS,
+    DPSNet and DELTAS through ``run_testing_baseline.evaluate_scene_baseline``
+    over one 640x480 synthetic scene and its index file (ms a keyframe, peak
+    memory, launches), each held against the same code on the CPU.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. Each phase prints its lines; any failure raises, so the exit code is
@@ -59,7 +65,12 @@ FRAMES_640 = (1, 2, 32, 240, 320, 64)  # 640x480 frames, beyond what the TPU ker
 P = ONLINE[5]
 # absolute: the JAX kernel tests' 5e-4 for the dot cost, which averages over
 # channels; the L1 cost sums over them, and its measured 7.7e-4 gap (coordinate
-# fold against normalised grids, C=32) gets about 2.5x room
+# fold against normalised grids, C=32) gets about 2.5x room. Restated for the
+# baselines' C=3 (RGB normalised by (x - 81) / 35, costs up to about 12): the
+# gap does not shrink with C, because each sample's error comes from its
+# coordinate and a view of weight 1 carries it undiluted; measured 3.8e-4
+# with two views and 7.1e-4 with one view masked (the l1_rgb cases below,
+# NVIDIA H100 80GB HBM3, 700 W), so the same 2e-3 keeps about 2.8x room
 TOL = {True: 5e-4, False: 2e-3}
 N_FRAMES, N_MIN_KEYFRAMES, N_REF_KEYFRAMES = 40, 8, 3
 # card vs CPU depth, relative: the measured gap is 2.5e-7, and random weights
@@ -103,6 +114,19 @@ TSDF_ATOL, TSDF_FLIP_SHARE = 1e-5, 1e-4
 TSDF_VOXEL, TSDF_CUBE = 0.05, 5.4  # 108^3 = 1.26M voxels for the timing
 
 
+# the baselines' sweep: MVDepthNet and GP-MVS send the normalised RGB frames
+# (C=3) at full 256x320 through the forward kernel in L1 mode, 64 planes at
+# 0.5-50 m (one launch a keyframe)
+BASELINE_SWEEP, BASELINE_DEPTHS = (1, 2, 3, 256, 320, 64), (0.5, 50.0)
+# [baselines]: (seed, frames) of one 640x480 SynthScene folder, the keyframes
+# each baseline predicts on the card, and how many of the first ones are held
+# against the same code on the CPU (3 for the U-Nets, so the Kalman state
+# carries across frames; 1 for DPSNet and DELTAS, slow on the CPU at full size)
+BASELINE_SCENE, BASELINE_KEYFRAMES = (11, 32), 8
+BASELINE_REF = {"mvdepthnet": 3, "gpmvs": 3, "dpsnet": 1, "deltas": 1}
+BASELINE_RTOL = 1e-5
+
+
 def _with_c(shape, c):
     return shape[:2] + (c,) + shape[3:]
 
@@ -119,6 +143,11 @@ CASES = {
     "c64": (_with_c(ONLINE, 64), (2, 3, 1), (0.12, 0.03, 0.02), (0.5, 0.5), True),
     "l1": (ONLINE, (2, 3, 1), (0.12, 0.03, 0.02), (0.5, 0.5), False),
     "frames_640x480": (FRAMES_640, (2, 3, 1), (0.12, 0.03, 0.02), (0.5, 0.5), True),
+    # (..., depth range of the planes)
+    "l1_rgb_256x320": (BASELINE_SWEEP, (2, 3, 1), (0.12, 0.03, 0.02), (0.5, 0.5), False,
+                       BASELINE_DEPTHS),
+    "l1_rgb_256x320_masked": (BASELINE_SWEEP, (2, 3, 1), (0.12, 0.03, 0.02), (1.0, 0.0), False,
+                              BASELINE_DEPTHS),
 }
 
 
@@ -497,6 +526,87 @@ def bulk_phases(torch, ps, device, cfg, card, clock, tmp):
             "tsdf_voxels": n_vox, "marching_cubes_s": mc_s}
 
 
+def baseline_phases(torch, ps, device, card, clock, tmp):
+    """[baselines]: each of the four baselines through
+    ``run_testing_baseline.evaluate_scene_baseline`` on the card over one
+    640x480 scene folder and its index file, against the same code on the
+    CPU; returns per baseline its ms a keyframe, peak MiB and launches."""
+    from dvmvs_tpu_torch.apps.run_testing_baseline import evaluate_scene_baseline
+    from dvmvs_tpu_torch.apps.simulate_keyframe_buffer import simulate_dataset
+    from dvmvs_tpu_torch.baselines import BASELINE_REGISTRY
+    from dvmvs_tpu_torch.data.scene_folders import write_scene_folders
+    from dvmvs_tpu_torch.utils.results import InferenceTimer
+
+    dataset = "synth640_baselines"
+    folder, = write_scene_folders(os.path.join(tmp, dataset), [BASELINE_SCENE], BULK_FRAME,
+                                  BULK_STEP)
+    simulate_dataset(os.path.join(tmp, dataset), os.path.join(tmp, "indices"), 2)
+    index = os.path.join(tmp, "indices", f"keyframe+{dataset}+{os.path.basename(folder)}+nmeas+2")
+    print(f"[baselines] scene {BASELINE_SCENE} (seed, frames) written at {BULK_FRAME[0]}x"
+          f"{BULK_FRAME[1]} and indexed ({lap(clock):.1f} s)", flush=True)
+
+    def run(est, n, timer=None):
+        return evaluate_scene_baseline(est, folder, index, evaluate=False, max_frames=n,
+                                       timer=timer)[0]
+
+    out = {}
+    for name in ("mvdepthnet", "gpmvs", "dpsnet", "deltas"):
+        est = BASELINE_REGISTRY[name](device=device, seed=0)
+        run(est, 2)  # warm-up
+        timer = InferenceTimer(n_skip=1)
+        # the weights and what earlier phases still hold
+        held = torch.cuda.memory_allocated() / 2 ** 20
+        preds, _, peak, fwd, bwd = timed_run(torch, ps, lambda: run(est, BASELINE_KEYFRAMES,
+                                                                    timer))
+        want_fwd = len(preds) if name in ("mvdepthnet", "gpmvs") else 0
+        if len(preds) != BASELINE_KEYFRAMES or not all(
+                p.shape == (est.image_height, est.image_width) and np.isfinite(p).all()
+                and p.min() > 0 for p in preds):
+            raise AssertionError(f"{name}: {len(preds)} depths, or bad shapes or values")
+        if fwd != want_fwd or bwd:
+            raise AssertionError(f"{name}: forward kernel launched {fwd} times for {len(preds)} "
+                                 f"keyframes (want {want_fwd}), backward {bwd}")
+        cpu = BASELINE_REGISTRY[name](device="cpu", seed=0)
+        n_ref = BASELINE_REF[name]
+        if name == "deltas":
+            # the first keyframe's inputs; the dense stages held with the
+            # CPU's keypoints, the card's own top-k compared with the CPU's
+            seen = []
+            est.predict = lambda *a, real=est.predict: (seen.append(a), real(*a))[1]
+            run(est, 1)
+            del est.predict
+            with torch.inference_mode():
+                want = cpu.model.stages(*cpu.inputs(*seen[0]))
+                own = est.model.stages(*est.inputs(*seen[0]))
+                forced = est.model.stages(*est.inputs(*seen[0]),
+                                          keypoints=want["keypoints"].to(device))
+            kp_cpu = {tuple(k) for k in want["keypoints"][0].tolist()}
+            changed = len(kp_cpu - {tuple(k) for k in own["keypoints"][0].cpu().tolist()})
+            d_cpu = want["depth"].numpy()
+            gap = float(np.abs(forced["depth"].cpu().numpy() - d_cpu).max() / np.abs(d_cpu).max())
+            ref_text = (f"dense stages with the CPU's keypoints: raw depth gap {gap:.3e} of the "
+                        f"largest |depth| (tol {BASELINE_RTOL:g}); the card's own top-k changes "
+                        f"{changed} of {len(kp_cpu)} keypoints")
+        else:
+            want = run(cpu, n_ref)
+            gap = max(float(np.max(np.abs(a - b) / b)) for a, b in zip(preds, want))
+            ref_text = (f"first {n_ref} keyframe(s) card vs CPU: max relative depth difference "
+                        f"{gap:.3e} (tol {BASELINE_RTOL:g})")
+        steady = timer.times[1:]
+        out[name] = {"ms_median": float(np.median(steady)),
+                     "ms_p90": float(np.percentile(steady, 90)), "peak_mib": peak - held,
+                     "launches": fwd, "keyframes": len(preds), "gap": gap}
+        print(f"[baselines] {name} {est.image_width}x{est.image_height}: {len(preds)} keyframes, "
+              f"predict median {out[name]['ms_median']:.3f} ms p90 {out[name]['ms_p90']:.3f} ms "
+              f"over {len(steady)} (first {timer.times[0]:.1f} ms), peak memory {peak - held:.1f} "
+              f"MiB above the {held:.1f} MiB held before (weights, earlier phases), "
+              f"forward kernel launches {fwd} (want {want_fwd}); {ref_text} "
+              f"({lap(clock):.1f} s) | {card}", flush=True)
+        if not gap <= BASELINE_RTOL:
+            raise AssertionError(f"{name}: card and CPU disagree ({gap:.3e})")
+    return out
+
+
 def timed_run(torch, ps, fn):
     """fn() with the launch counts set to 0 just before and read just after:
     (result, wall seconds to the last readback, peak MiB, forward launches,
@@ -615,6 +725,7 @@ def train_step_gaps(torch, cpu, card, freeze_bn):
 
 
 def main():
+    start = time.perf_counter()
     import torch
 
     # 1. device
@@ -654,31 +765,38 @@ def main():
 
     # 3. kernel vs plain version at the path's shapes
     max_err = 0.0
-    for name, (shape, euler, t, weights, dot) in CASES.items():
-        ref, meas, mats, w = sweep_case(shape, euler, t, weights, seed=0, device=device)
+    rgb_err = 0.0
+    for name, (shape, euler, t, weights, dot, *depths) in CASES.items():
+        ref, meas, mats, w = sweep_case(shape, euler, t, weights, seed=0, device=device,
+                                        **({"depths": depths[0]} if depths else {}))
         want = ps.plane_sweep_multiview_plain(ref, meas, mats, w, dot)
         torch.cuda.synchronize()
         got = ps.plane_sweep_multiview(ref, meas, mats, w, dot)
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        print(f"[compare] {name} {shape}: max_abs_diff={err:.3e} (tol {TOL[dot]:g}), "
+        err, tol = (got - want).abs().max().item(), TOL[dot]
+        print(f"[compare] {name} {shape}: max_abs_diff={err:.3e} (tol {tol:g}), "
               f"max |cost| {want.abs().max().item():.3f} ({lap(clock):.1f} s)", flush=True)
-        if not (np.isfinite(err) and err <= TOL[dot]):
+        if not (np.isfinite(err) and err <= tol):
             raise AssertionError(f"kernel disagrees with the plain version on {name}: {err}")
         max_err = max(max_err, err)
+        if shape == BASELINE_SWEEP:
+            rgb_err = max(rgb_err, err)
 
     # 4. time at the online shape and at 640x480 frames (typical geometry,
-    # dot product) beside the least time the card could take (the bound)
+    # dot product) and at the baselines' L1 shape, beside the least time the
+    # card could take (the bound)
     timing = {}
-    for shape in (ONLINE, FRAMES_640):
-        ref, meas, mats, w = sweep_case(shape, seed=1, device=device)
-        kernel_ms = time_ms(lambda: ps.plane_sweep_multiview(ref, meas, mats, w))
-        plain_ms = time_ms(lambda: ps.plane_sweep_multiview_plain(ref, meas, mats, w))
-        kernel_ms_2 = time_ms(lambda: ps.plane_sweep_multiview(ref, meas, mats, w))
-        single_ms = single_launch_ms(lambda: ps.plane_sweep_multiview(ref, meas, mats, w))
+    for shape, dot, depths in ((ONLINE, True, (0.25, 20.0)), (FRAMES_640, True, (0.25, 20.0)),
+                               (BASELINE_SWEEP, False, BASELINE_DEPTHS)):
+        ref, meas, mats, w = sweep_case(shape, seed=1, device=device, depths=depths)
+        kernel_ms = time_ms(lambda: ps.plane_sweep_multiview(ref, meas, mats, w, dot))
+        plain_ms = time_ms(lambda: ps.plane_sweep_multiview_plain(ref, meas, mats, w, dot))
+        kernel_ms_2 = time_ms(lambda: ps.plane_sweep_multiview(ref, meas, mats, w, dot))
+        single_ms = single_launch_ms(lambda: ps.plane_sweep_multiview(ref, meas, mats, w, dot))
         bound = sweep_bound(ref, meas, mats, w)
         timing[shape] = (kernel_ms, plain_ms, bound, single_ms)
-        print(f"[time] plane sweep (B,V,C,H,W,P)={shape}: kernel {kernel_ms:.4f} ms (again "
+        print(f"[time] plane sweep {'dot' if dot else 'L1'} (B,V,C,H,W,P)={shape}: kernel "
+              f"{kernel_ms:.4f} ms (again "
               f"{kernel_ms_2:.4f}; {TIMER}), single launches through the wrapper {single_ms:.4f} "
               f"ms ({SINGLE_LAUNCH_TIMER}), plain {plain_ms:.4f} ms; bound "
               f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['bytes']} bytes, "
@@ -901,11 +1019,17 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         bulk = bulk_phases(torch, ps, device, cfg, card, clock, tmp)
 
+    # 12b. the four baselines through their evaluation loop
+    with tempfile.TemporaryDirectory() as tmp:
+        baselines = baseline_phases(torch, ps, device, card, clock, tmp)
+
     # 13. results: the forward at the online shape (its main path), the
     # backward at the training shape
     fwd_launches, bwd_launches = runs["fusionnet"][:2]
     online_ms, online_plain_ms, online_bound, online_single_ms = timing[ONLINE]
     big_ms, big_plain_ms, big_bound, _ = timing[FRAMES_640]
+    rgb_ms, rgb_plain_ms, rgb_bound, rgb_single_ms = timing[BASELINE_SWEEP]
+    print(f"[total] {time.perf_counter() - start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": [{
         "name": "plane_sweep_multiview",
@@ -942,6 +1066,15 @@ def main():
         "bound_ms_bulk": bulk_bound["bound_ms"],
         "bound_by_bulk": bulk_bound["bound_by"],
         "share_of_bound_bulk": bulk_bound["bound_ms"] / bulk_ms,
+        "shape_baselines_l1": dict(zip("BVCHWP", BASELINE_SWEEP)),
+        "launches_baselines_l1": {k: baselines[k]["launches"] for k in ("mvdepthnet", "gpmvs")},
+        "max_abs_err_baselines_l1": rgb_err,
+        "ms_baselines_l1": rgb_ms,
+        "ms_single_launch_baselines_l1": rgb_single_ms,
+        "plain_ms_baselines_l1": rgb_plain_ms,
+        "bound_ms_baselines_l1": rgb_bound["bound_ms"],
+        "bound_by_baselines_l1": rgb_bound["bound_by"],
+        "share_of_bound_baselines_l1": rgb_bound["bound_ms"] / rgb_ms,
     }, {
         "name": "plane_sweep_backward",
         "route": "cuda",

@@ -6,7 +6,8 @@ predicted. The buffer stores each keyframe's pose beside its cached
 half-resolution features on the device, so the backbone runs once per
 keyframe.
 
-  - ``predict_stream`` takes preprocessed frames from memory.
+  - ``predict_stream`` takes frames from memory: preprocessed, or raw with
+    a ``preprocess`` callable that it applies to accepted frames only.
   - ``predict_scene`` and ``main`` read a scene directory (``images/*.png``,
     ``depth/*.png``, ``poses.txt``, ``K.txt``) with the port's own PNG
     reader (``data/io.py``) and resize (``data/preprocess.py``), without
@@ -99,13 +100,17 @@ def predict_stream(engine: InferenceEngine, frames: Iterable[np.ndarray],
                    poses: Sequence[np.ndarray], K: np.ndarray, cfg: TestConfig,
                    max_frames: Optional[int] = None,
                    timer: Optional[InferenceTimer] = None,
-                   on_prediction: Optional[Callable[[int, np.ndarray], None]] = None
+                   on_prediction: Optional[Callable[[int, np.ndarray], None]] = None,
+                   preprocess: Optional[Callable[[np.ndarray], np.ndarray]] = None
                    ) -> Tuple[List[np.ndarray], List[int]]:
-    """Stream preprocessed frames (H, W, 3) with camera-to-world poses and
-    intrinsics K (at the frame size) through the keyframe buffer.
+    """Stream frames (H, W, 3) with camera-to-world poses and intrinsics K
+    (at the network's frame size) through the keyframe buffer.
 
-    Returns (depth per predicted keyframe, index of each predicted frame).
-    Stops after ``max_frames`` predictions when given; ``timer`` times each
+    The frames are preprocessed, or raw when ``preprocess`` is given: it is
+    then called on a frame only once the buffer has accepted it (responses
+    0 and 1), as the JAX driver calls ``apply_rgb``. Returns (depth per
+    predicted keyframe, index of each predicted frame). Stops after
+    ``max_frames`` predictions when given; ``timer`` times each
     ``encode_and_predict``; ``on_prediction(frame index, depth)`` is called
     after each prediction.
     """
@@ -122,13 +127,15 @@ def predict_stream(engine: InferenceEngine, frames: Iterable[np.ndarray],
             break
         # keyframe entry: (pose, cached half-res features on the device)
         response = buf.try_new_keyframe(pose, None)
-        if response == 0:
-            buf.buffer[-1] = (pose, engine.encode(image)[0])
-            continue
         if response in (2, 4, 5):
             continue
         if response == 3:  # tracking lost: the buffer was cleared
             engine.reset()
+            continue
+        if preprocess is not None:
+            image = preprocess(image)
+        if response == 0:
+            buf.buffer[-1] = (pose, engine.encode(image)[0])
             continue
 
         measurement_frames = buf.get_best_measurement_frames(cfg.n_measurement_frames)
@@ -165,7 +172,7 @@ def predict_scene(engine: InferenceEngine, scene_path: str, cfg: TestConfig,
     def frames():
         for image in itertools.chain([first], raw):
             current["raw"] = image
-            yield preprocessor.apply_rgb(image, SCALE_RGB, MEAN_RGB, STD_RGB)
+            yield image
 
     K = preprocessor.get_updated_intrinsics().astype(np.float32)
 
@@ -175,9 +182,10 @@ def predict_scene(engine: InferenceEngine, scene_path: str, cfg: TestConfig,
         live_tsdf.integrate(color, depth, K, scene.poses[i])
 
     timer = InferenceTimer()
-    predictions, indices = predict_stream(engine, frames(), scene.poses, K, cfg,
-                                          max_frames=max_frames, timer=timer,
-                                          on_prediction=fuse if live_tsdf is not None else None)
+    predictions, indices = predict_stream(
+        engine, frames(), scene.poses, K, cfg, max_frames=max_frames, timer=timer,
+        on_prediction=fuse if live_tsdf is not None else None,
+        preprocess=lambda image: preprocessor.apply_rgb(image, SCALE_RGB, MEAN_RGB, STD_RGB))
     timer.print_statistics()
     reference_depths = None
     if evaluate and scene.depth_filenames:

@@ -23,13 +23,13 @@ BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` that updates like ``flax.linen.BatchNorm``: in
-    train mode it normalises with the biased batch statistics (as both
-    frameworks do) and folds the biased batch variance into ``running_var``
-    with the module's momentum; stock torch folds in the unbiased one, n/(n-1)
-    larger (8/7 for the 1/32 blocks of a 64x64 batch of 2). Eval mode and the
-    state-dict names are the parent's."""
+class _FlaxRunningStats:
+    """Train-mode forward of a torch BatchNorm that updates like
+    ``flax.linen.BatchNorm``: it normalises with the biased batch statistics
+    (as both frameworks do) and folds the biased batch variance into
+    ``running_var`` with the module's momentum; stock torch folds in the
+    unbiased one, n/(n-1) larger (8/7 for the 1/32 blocks of a 64x64 batch
+    of 2). Eval mode and the state-dict names are torch's."""
 
     def forward(self, x):
         if not self.training:
@@ -37,10 +37,19 @@ class BatchNorm2d(nn.BatchNorm2d):
         # the running buffers stay out of the autograd graph: a module called
         # at every step of a BPTT loop updates them between forward and backward
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            var, mean = torch.var_mean(x, dim=(0, *range(2, x.dim())), correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with Flax's running-statistics update."""
+
+
+class BatchNorm3d(_FlaxRunningStats, nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` with Flax's running-statistics update (statistics
+    over N, D, H, W)."""
 
 
 class ConvBnRelu(nn.Sequential):
@@ -132,15 +141,31 @@ class DepthHead(nn.Sequential):
 
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator):
-    """Seeded initialisation: every conv gets PyTorch's default distribution
-    (uniform in +-1/sqrt(fan_in)) drawn from ``generator``; BatchNorm starts
-    at identity."""
+    """Seeded initialisation: every conv (2-D or 3-D) gets PyTorch's default
+    distribution (uniform in +-1/sqrt(fan_in)) drawn from ``generator``;
+    BatchNorm starts at identity."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
             fan_in = m.weight[0].numel()
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:
                 m.bias.uniform_(-bound, bound, generator=generator)
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
             m.reset_parameters()
+
+
+def seeded_model(model: nn.Module, seed: int, device="cuda", state_dict=None) -> nn.Module:
+    """``model`` initialised from a ``torch.Generator`` seeded with ``seed``
+    (``init_parameters``), then loaded from ``state_dict`` when given
+    (strict), moved to ``device`` and put in eval mode. Raises if the card
+    is asked for and there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{type(model).__name__}: device {str(device)!r} asked for, but "
+                           "torch.cuda.is_available() is false; pass device=\"cpu\" to run on "
+                           "the CPU")
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    return model.to(device).eval()

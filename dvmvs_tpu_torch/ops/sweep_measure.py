@@ -51,10 +51,10 @@ def pose(rx, ry, rz, t):
 
 
 def sweep_case(shape, euler=TYPICAL[0], t=TYPICAL[1], weights=None, seed=0, device="cuda",
-               focal=0.95):
+               focal=0.95, depths=(0.25, 20.0)):
     """Seeded inputs of the forward at ``shape`` = (B, V, C, H, W, P): view 0
     at (euler, t), view 1 at OTHER_VIEW, intrinsics ``focal * W``, P
-    inverse-depth planes in [0.25, 20] m; every batch element alike.
+    inverse-depth planes in ``depths`` (metres); every batch element alike.
     Returns ref, meas, mats, weights (default 1 / V each)."""
     B, V, C, H, W, P = shape
     rs = np.random.RandomState(seed)
@@ -63,7 +63,7 @@ def sweep_case(shape, euler=TYPICAL[0], t=TYPICAL[1], weights=None, seed=0, devi
     K = torch.tensor([[focal * W, 0, W / 2], [0, focal * W, H / 2], [0, 0, 1]], device=device)
     poses = np.stack([pose(*euler, t), pose(*OTHER_VIEW[0], OTHER_VIEW[1])][:V])
     mats = build_plane_matrices(torch.eye(4, device=device), torch.from_numpy(poses).to(device),
-                                K, inverse_depth_planes(0.25, 20.0, P, device))
+                                K, inverse_depth_planes(*depths, P, device))
     w = torch.full((B, V), 1.0 / V) if weights is None else torch.tensor([weights] * B)
     return (ref, meas, mats[None].expand(B, -1, -1, -1, -1).contiguous(),
             w.to(device=device, dtype=torch.float32))

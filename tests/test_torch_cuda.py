@@ -6,9 +6,12 @@ run as ``python -m pytest --noconftest -q tests/test_torch_cuda.py`` from
 the repo root. Forward tolerance, absolute (coordinate fold and order of
 summation): 5e-4 for the dot cost, the JAX kernel tests' own; 2e-3 for the
 L1 cost, which sums over the channels where the dot cost averages (measured
-7.7e-4 at C=32). Backward: tests/test_pallas_vjp.py's atol 2e-4 *
-max(|grad|, 1) against autograd through the plain version.
+7.7e-4 at C=32, 7.1e-4 at the baselines' C=3 with a view masked).
+Backward: tests/test_pallas_vjp.py's atol 2e-4 * max(|grad|, 1) against
+autograd through the plain version.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -390,3 +393,87 @@ def test_tsdf_integrate_on_the_card_matches_the_cpu(cuda_device):
     np.testing.assert_array_equal(vols[1].weight.cpu().numpy(), vols[0].weight.numpy())
     np.testing.assert_allclose(t_card, t_cpu, atol=1e-5)
     assert (vols[0].weight.numpy() > 0).sum() > 1000
+
+
+@pytest.mark.parametrize("weights", [(0.5, 0.5), (1.0, 0.0)], ids=["two_views", "masked"])
+def test_kernel_at_the_baselines_l1_rgb_shape(cuda_device, weights):
+    """MVDepthNet's and GP-MVS's sweep: normalised RGB (C=3) at 256x320 in
+    L1 mode over planes at 0.5-50 m, within the L1 limit (measured up to
+    7.1e-4 with a view masked: the gap does not shrink with C)."""
+    from dvmvs_tpu_torch.ops.sweep_measure import sweep_case
+
+    ref, meas, mats, w = sweep_case(cs.BASELINE_SWEEP, weights=weights, device=cuda_device,
+                                    depths=cs.BASELINE_DEPTHS)
+    want = tps.plane_sweep_multiview_plain(ref, meas, mats, w, False)
+    before = tps.launch_count
+    got = tps.plane_sweep_multiview(ref, meas, mats, w, False)
+    torch.cuda.synchronize()
+    assert tps.launch_count == before + 1
+    assert got.shape == (1, 64, 256, 320) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= ATOL[False]
+
+
+@pytest.mark.parametrize("name", ["mvdepthnet", "gpmvs", "dpsnet", "deltas"])
+def test_baselines_on_the_card_match_the_cpu(cuda_device, name):
+    """Each baseline at a small size, same seeded weights, two keyframes
+    (the second after GP-MVS's Kalman step has state): the card's depth
+    within rtol 1e-5 of the CPU's; one forward launch a keyframe for the
+    U-Nets, none for DPSNet and DELTAS. DELTAS is held on the raw depth of
+    its dense stages with the CPU's keypoints (a near-tie may flip one).
+    The poses carry a small rotation: under a pure translation DPSNet's
+    label 0 (depth 4e16) maps border pixels exactly onto the grid's edge,
+    where the reference's rule (out of [-1, 1] -> 2, a zero sample) turns on
+    the last bit of the projection, which the card and the CPU round
+    differently (ROADMAP, Queue 3)."""
+    import dvmvs_tpu_torch.apps.run_testing_baseline  # noqa: F401 (registry)
+    from dvmvs_tpu_torch.baselines import BASELINE_REGISTRY
+    from dvmvs_tpu_torch.baselines.dpsnet import DPSNetModel
+    from dvmvs_tpu_torch.models.layers import seeded_model
+    from dvmvs_tpu_torch.ops.sweep_measure import pose
+
+    w, h = {"dpsnet": (128, 128), "deltas": (64, 48)}.get(name, (96, 64))
+    cls = type("Small", (BASELINE_REGISTRY[name],), {"image_width": w, "image_height": h})
+    ests = {d: cls(device=d, seed=5) for d in ("cpu", cuda_device)}
+    if name == "dpsnet":  # 8 labels
+        for d, est in ests.items():
+            est.model = seeded_model(DPSNetModel(8), 5, d)
+    rs = np.random.RandomState(9)
+    images = [rs.randn(h, w, 3).astype(np.float32) for _ in range(4)]
+    # no DPSNet sample within 1e-5 of the edge for these (checked on the CPU)
+    poses = [pose(0.7 * i, -0.56 * i, 0.42 * i, (0.1 * i, 0.01 * i, 0.0)).astype(np.float64)
+             for i in range(4)]
+    K = np.array([[0.8 * w, 0, w / 2], [0, 0.8 * w, h / 2], [0, 0, 1]], np.float32)
+    frames = [(images[2], [images[1], images[0]], poses[2], [poses[1], poses[0]]),
+              (images[3], [images[2]], poses[3], [poses[2]])]
+    if name == "deltas":
+        with torch.inference_mode():
+            want = ests["cpu"].model.stages(*ests["cpu"].inputs(*frames[0], K))
+            got = ests[cuda_device].model.stages(*ests[cuda_device].inputs(*frames[0], K),
+                                                 keypoints=want["keypoints"].to(cuda_device))
+        d = want["depth"].numpy()
+        assert np.abs(got["depth"].cpu().numpy() - d).max() <= 1e-5 * np.abs(d).max()
+        return
+    out = {}
+    for d, est in ests.items():
+        before = tps.launch_count
+        out[d] = [est.predict(*f[:4], K) for f in frames]
+        if d != "cpu":
+            want = 2 if name in ("mvdepthnet", "gpmvs") else 0
+            assert tps.launch_count - before == want
+    for got, want in zip(out[cuda_device], out["cpu"]):
+        assert got.shape == (h, w) and np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_profile_baselines_reports_every_stage(cuda_device, tmp_path):
+    """apps/profile_baselines.py at full size, one timed call a stage: every
+    stage timed, DELTAS's largest leaf allocation named."""
+    from dvmvs_tpu_torch.apps import profile_baselines
+
+    out = tmp_path / "profile.json"
+    profile_baselines.main(["--reps", "1", "--out", str(out)])
+    result = json.loads(out.read_text())
+    assert {"mvdepthnet", "dpsnet", "deltas"} <= set(result)
+    for name in ("mvdepthnet", "dpsnet", "deltas"):
+        assert all(v > 0 for k, v in result[name].items() if k.endswith("ms") or "ms " in k)
+    assert result["deltas"]["leaf_peak_mib"]

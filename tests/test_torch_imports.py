@@ -42,12 +42,48 @@ def test_port_imports_no_jax_or_cv2():
     assert result["bad"] == []
     assert TRAINING_MODULES <= set(result["names"])  # the training slice was walked too
     assert BULK_MODULES <= set(result["names"])
+    assert BASELINE_MODULES <= set(result["names"])
     assert len(result["names"]) >= 35
 
 
 BULK_MODULES = {f"dvmvs_tpu_torch.{m}" for m in (
     "apps.run_testing", "apps.run_tsdf", "apps.simulate_keyframe_buffer", "ops.tsdf",
     "utils.native", "apps.bench_bulk", "data.scene_folders")}
+
+
+BASELINE_MODULES = {f"dvmvs_tpu_torch.{m}" for m in (
+    "apps.run_testing_baseline", "baselines", "baselines.registry", "baselines.mvdepth_backbone",
+    "baselines.mvdepthnet", "baselines.gpmvs", "baselines.dpsnet", "baselines.deltas",
+    "utils.baseline_weights")}
+
+
+def test_baselines_path_loads_no_jax_or_cv2():
+    """Importing the baseline driver registers all four baselines, and one
+    GP-MVS prediction on the CPU (its L1 sweep and host Kalman step) loads no
+    jax, flax, cv2 or dvmvs_tpu module."""
+    code = textwrap.dedent("""
+        import json, sys
+        import numpy as np
+        import dvmvs_tpu_torch.apps.run_testing_baseline
+        import dvmvs_tpu_torch.utils.baseline_weights
+        from dvmvs_tpu_torch.baselines import BASELINE_REGISTRY
+        from dvmvs_tpu_torch.baselines.gpmvs import GPMVS
+        est = type("Small", (GPMVS,), {"image_width": 64, "image_height": 32})(device="cpu")
+        K = np.array([[40.0, 0, 32], [0, 40.0, 16], [0, 0, 1]], np.float32)
+        pose = np.eye(4); pose[0, 3] = 0.1
+        image = np.zeros((32, 64, 3), np.float32)
+        depth = est.predict(image, [image], np.eye(4), [pose], K)
+        print(json.dumps({
+            "registered": sorted(BASELINE_REGISTRY), "shape": list(depth.shape),
+            "bad": sorted(m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "dvmvs_tpu"))}))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    result = json.loads(out.splitlines()[-1])
+    assert result["bad"] == []
+    assert result["registered"] == ["deltas", "dpsnet", "gpmvs", "mvdepthnet"]
+    assert result["shape"] == [32, 64]
 
 
 def test_bulk_and_tsdf_paths_load_no_jax_cv2_or_tracked_native_library(tmp_path):
