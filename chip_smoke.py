@@ -38,7 +38,17 @@ backward, one nvcc each, in parallel) and drives both paths of the port:
     plain version and timed beside its bound, then MVDepthNet, GP-MVS,
     DPSNet and DELTAS through ``run_testing_baseline.evaluate_scene_baseline``
     over one 640x480 synthetic scene and its index file (ms a keyframe, peak
-    memory, launches), each held against the same code on the CPU.
+    memory, launches), each held against the same code on the CPU;
+  - data parallel over NCCL at world size 1 (``parallel/mesh.py``):
+    ``dryrun_multichip(1)``, one pairnet (B=14) and one fusionnet (B=4,
+    S=8) step at 256x256 through the data-parallel path against the plain
+    step (loss and BatchNorm buffers bit for bit, updated parameters within
+    the plain step's own repeat gap), both timed, and ``run_testing
+    --n-devices 1 --batch-size 8`` on the bulk scenes against the plain
+    batched run;
+  - the accuracy proxy's driver (``apps/accuracy_proxy.py``) end to end at a
+    smoke's size: corpus, pairnet then fusionnet training, evaluation of
+    both best checkpoints and the report.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. Each phase prints its lines; any failure raises, so the exit code is
@@ -125,6 +135,15 @@ BASELINE_SWEEP, BASELINE_DEPTHS = (1, 2, 3, 256, 320, 64), (0.5, 50.0)
 BASELINE_SCENE, BASELINE_KEYFRAMES = (11, 32), 8
 BASELINE_REF = {"mvdepthnet": 3, "gpmvs": 3, "dpsnet": 1, "deltas": 1}
 BASELINE_RTOL = 1e-5
+
+# [parallel]: pairnet's training batch; rounds of steps timed in turns
+PAIR_BATCH, PARALLEL_ROUNDS, PARALLEL_STEPS = 14, 3, 3
+# [proxy]: the driver at a smoke's size (24 frames crawl into 20 training
+# subsequences of 3 and one validation subsequence, hence batch 1)
+PROXY_ARGS = ["--train-scenes", "2", "--val-scenes", "1", "--eval-scenes", "1",
+              "--frames", "24", "--pair-batch", "4", "--fusion-batch", "1", "--subseq", "3",
+              "--epochs", "2", "--fusion-epochs", "3", "--finetune-epochs", "1",
+              "--max-steps", "2"]
 
 
 def _with_c(shape, c):
@@ -221,47 +240,18 @@ def bwd_case(torch, ps, seed, name, device):
                       **options)
 
 
-def render_frames(seed, n_frames, first, last, size):
-    """Frames first..last-1 of SynthScene(seed)'s walk, (rgb uint8, depth)."""
-    from dvmvs_tpu_torch.data import synthetic as synth
-
-    scene = synth.SynthScene(seed)
-    poses = scene.trajectory(n_frames)
-    K = synth.default_K(size, size)
-    return [scene.render(poses[i], K, size, size) for i in range(first, last)]
-
-
 def write_corpus(root, size=256, workers=8):
     """The training layout (per-frame npz with depth in mm, poses.txt, K.txt,
     train.txt, validation.txt) of TRAIN_SCENE and VAL_SCENE, rendered at the
-    training size (no resize, so no OpenCV) by ``workers`` spawned
-    processes."""
-    from dvmvs_tpu_torch.data import synthetic as synth
-    from dvmvs_tpu_torch.data.scene_folders import spawn_pool
+    training size (no resize) by ``workers`` spawned processes."""
+    from dvmvs_tpu_torch.apps.make_synth_scenes import render_scenes, write_train_scene
 
-    jobs, names = [], []
-    for seed, n in (TRAIN_SCENE, VAL_SCENE):
-        step = -(-n // workers)
-        jobs += [(seed, n, i, min(i + step, n), size) for i in range(0, n, step)]
-    with spawn_pool(workers) as pool:
-        chunks = pool.starmap(render_frames, jobs)
-    frames = {}
-    for (seed, _, first, _, _), chunk in zip(jobs, chunks):
-        frames.setdefault(seed, []).extend(chunk)
-    for seed, n in (TRAIN_SCENE, VAL_SCENE):
-        name = f"scene_{seed}"
-        names.append(name)
-        scene_dir = os.path.join(root, name)
-        os.makedirs(scene_dir)
-        for i, (rgb, depth) in enumerate(frames[seed]):
-            np.savez(os.path.join(scene_dir, f"{i:05d}.npz"), image=rgb,
-                     depth=np.round(depth * 1000.0).astype(np.uint16))
-        np.savetxt(os.path.join(scene_dir, "poses.txt"),
-                   synth.SynthScene(seed).trajectory(n).reshape(n, 16))
-        np.savetxt(os.path.join(scene_dir, "K.txt"), synth.default_K(size, size))
-    for split, name in zip(("train", "validation"), names):
+    scenes = (TRAIN_SCENE, VAL_SCENE)
+    for (seed, _), frames in zip(scenes, render_scenes(scenes, size, size, workers)):
+        write_train_scene(os.path.join(root, f"scene_{seed}"), seed, frames, size, size)
+    for split, (seed, _) in zip(("train", "validation"), scenes):
         with open(os.path.join(root, f"{split}.txt"), "w") as f:
-            f.write(name + "\n")
+            f.write(f"scene_{seed}\n")
 
 
 BULK_GEOMETRIES = [LATERAL, TYPICAL, ROLL_35, YAW_120, ((0, 0, 4), (0.05, 0.0, 0.1)), WIDE, BACK,
@@ -724,6 +714,143 @@ def train_step_gaps(torch, cpu, card, freeze_bn):
     return grad_gap, stat_gap
 
 
+def parallel_phase(torch, ps, card, clock):
+    """[parallel]: NCCL at world size 1. ``dryrun_multichip(1)``, then one
+    pairnet and one fusionnet step through the data-parallel path against
+    the plain step at the training shapes, and their times. Returns the
+    launches of one data-parallel step of each model and the step times."""
+    from dvmvs_tpu_torch.apps.dryrun_multichip import dryrun_multichip
+    from dvmvs_tpu_torch.apps.run_training import make_model
+    from dvmvs_tpu_torch.config import TrainConfig
+    from dvmvs_tpu_torch.parallel import mesh
+    from dvmvs_tpu_torch.parallel import train as tt
+
+    group, dev = mesh.init_data_parallel(1, device="cuda")
+    out = {}
+    try:
+        dry = dryrun_multichip(1, "cuda")
+        print(f"[parallel] NCCL group of 1 on {dev}; dryrun_multichip(1): train step loss "
+              f"{dry['loss']:.4f}, sharded serving and two lockstep recurrent steps finite "
+              f"({lap(clock):.1f} s)", flush=True)
+        for kind, s, b in (("pairnet", 2, PAIR_BATCH), ("fusionnet", 8, TB)):
+            batch = small_batch(torch, dev, seed=3, s=s, b=b, size=256)
+            stages = tt.FUSIONNET_STAGES if kind == "fusionnet" else tt.PAIRNET_STAGES
+            two_way = kind == "pairnet"
+            plain = make_model(kind, TrainConfig(), dev, seed=0).train()
+            repeat = copy.deepcopy(plain)
+            dp = tt.make_data_parallel(copy.deepcopy(plain), group)
+
+            def step(model, optimizer, g):
+                return tt.train_step(model, optimizer, batch, kind, two_way=two_way,
+                                     flip_mask=[True, False], group=g)
+
+            # one step each, every module trainable, deterministic cuDNN. The
+            # forward repeats bit for bit, so the loss and the BatchNorm
+            # buffers must be equal; the backward kernel (d_meas), bilinear
+            # upsampling and grid_sample sum by atomics in no fixed order, so
+            # the updated parameters are held to the plain step's own repeat
+            torch.backends.cudnn.deterministic = True
+            try:
+                got = {}
+                for name, model, g in (("plain", plain, None), ("repeat", repeat, None),
+                                       ("dp", dp, group)):
+                    ps.launch_count = ps.backward_launch_count = 0
+                    loss = step(model, tt.make_optimizer(model, stages[-1]), g)["loss"]
+                    torch.cuda.synchronize()
+                    got[name] = (loss, model.state_dict(), ps.launch_count,
+                                 ps.backward_launch_count)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            (l0, sd0, _, _), (lr, sdr, _, _), (l1, sd1, fwd, bwd) = (
+                got["plain"], got["repeat"], got["dp"])
+            stats = [k for k in sd0 if k.endswith(("running_mean", "running_var"))]
+            params = [k for k, _ in plain.named_parameters()]
+            differ = [k for k in stats if not torch.equal(sd0[k], sd1[k])]
+            gap = max((sd1[k] - sd0[k]).abs().max().item() for k in params)
+            repeat_gap = max((sdr[k] - sd0[k]).abs().max().item() for k in params)
+            if not (torch.equal(l0, l1) and torch.equal(l0, lr)) or differ or fwd == 0 \
+                    or bwd == 0 or not (gap == 0 if repeat_gap == 0 else gap <= 4 * repeat_gap):
+                raise AssertionError(
+                    f"[parallel] {kind}: data-parallel step at world size 1 loss {l1.item()} vs "
+                    f"{l0.item()} (repeat {lr.item()}), statistics differing {differ[:5]}, "
+                    f"parameter gap {gap:.3e} (repeat {repeat_gap:.3e}), launches {fwd}/{bwd}")
+            # times: every module trainable, plain and data-parallel in turns
+            opts = {"plain": tt.make_optimizer(plain, stages[-1]),
+                    "dp": tt.make_optimizer(dp, stages[-1])}
+            times = {"plain": [], "dp": []}
+            for _ in range(PARALLEL_ROUNDS):
+                for name, model, g in (("plain", plain, None), ("dp", dp, group)):
+                    step(model, opts[name], g)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(PARALLEL_STEPS):
+                        step(model, opts[name], g)
+                    torch.cuda.synchronize()
+                    times[name].append((time.perf_counter() - t0) * 1e3 / PARALLEL_STEPS)
+            ms = {k: float(np.median(v)) for k, v in times.items()}
+            out[kind] = {"fwd": fwd, "bwd": bwd, "ms": ms}
+            print(f"[parallel] {kind} B={b} S={s} 256x256: data-parallel step at world size 1 "
+                  f"against the plain step: loss {l1.item():.6f} and {len(stats)} BatchNorm "
+                  f"buffers bit for bit; updated parameters max |diff| {gap:.3e} (the plain "
+                  f"step against its own repeat: {repeat_gap:.3e}); "
+                  f"kernel launches of one step on a rank: forward {fwd}, backward {bwd}; step "
+                  f"median of {PARALLEL_ROUNDS} rounds of {PARALLEL_STEPS} (all modules "
+                  f"trainable): without a group {ms['plain']:.1f} ms, data-parallel at world "
+                  f"size 1 {ms['dp']:.1f} ms ({lap(clock):.1f} s) | {card}", flush=True)
+    finally:
+        mesh.destroy()
+    return out
+
+
+def parallel_bulk_phase(ps, tmp, card, clock):
+    """[parallel-bulk]: run_testing --n-devices 1 --batch-size 8 on the
+    [bulk] scenes against the plain batched run: the same files, equal
+    depths, and the forward kernel launched by the data-parallel run."""
+    from dvmvs_tpu_torch.apps import run_testing as rt
+
+    args = ["--data", tmp, "--dataset-name", BULK_DATASET, "--model", "pairnet",
+            "--batch-size", str(BULK_BATCH), "--max-frames", str(BULK_BATCH)]
+    rt.main(args + ["--output", os.path.join(tmp, "plain")])
+    ps.launch_count = ps.backward_launch_count = 0
+    rt.main(args + ["--n-devices", "1", "--output", os.path.join(tmp, "dp")])
+    fwd, bwd = ps.launch_count, ps.backward_launch_count
+    files = sorted(os.listdir(os.path.join(tmp, "plain")))
+    if not files or files != sorted(os.listdir(os.path.join(tmp, "dp"))) or not fwd or bwd:
+        raise AssertionError(f"[parallel-bulk] files {files}, launches {fwd}/{bwd}")
+    for f in files:
+        a, b = (np.load(os.path.join(tmp, d, f))["arr_0"] for d in ("plain", "dp"))
+        if not np.array_equal(a, b):
+            raise AssertionError(f"[parallel-bulk] {f} differs")
+    print(f"[parallel-bulk] run_testing --n-devices 1 --batch-size {BULK_BATCH} (NCCL) on "
+          f"{len(files) // 2} scenes: the plain batched run's {len(files)} files, depths and "
+          f"errors equal; forward kernel launches {fwd}, backward 0 ({lap(clock):.1f} s) | "
+          f"{card}", flush=True)
+
+
+def proxy_phase(card, clock, tmp):
+    """[proxy]: apps/accuracy_proxy.py end to end at a smoke's size (child
+    processes, whose kernel launches the [train] and [bulk] paths count)."""
+    from dvmvs_tpu_torch.apps import accuracy_proxy
+    from dvmvs_tpu_torch.apps.engine import InferenceEngine
+    from dvmvs_tpu_torch.utils.checkpoint import load_checkpoint
+
+    report = accuracy_proxy.main(["--out", tmp, "--seeds", "3", *PROXY_ARGS])
+    summary = report["seeds"]["3"]
+    for kind in accuracy_proxy.MODELS:
+        metrics = np.asarray(summary[kind])
+        if metrics.shape != (8,) or not np.isfinite(metrics).all():
+            raise AssertionError(f"[proxy] {kind} metrics {metrics}")
+        load_checkpoint(summary["checkpoint"][kind], InferenceEngine(kind, device="cuda").model)
+    val = summary["validation"]
+    print(f"[proxy] accuracy_proxy {' '.join(PROXY_ARGS)}: corpus, training, evaluation and "
+          f"report written; abs_inv pairnet {summary['pairnet'][2]:.4f}, fusionnet "
+          f"{summary['fusionnet'][2]:.4f}; validation l1_inv pairnet "
+          f"{val['pairnet']['l1_inv']}, fusionnet {val['fusionnet']['l1_inv']}; both best "
+          f"checkpoints load into the engine; stage seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in summary["seconds"].items())
+          + f" ({lap(clock):.1f} s) | {card}", flush=True)
+
+
 def main():
     start = time.perf_counter()
     import torch
@@ -1015,9 +1142,18 @@ def main():
         if not (loss_gap <= STEP_RTOL and grad_gap <= grad_tol and stat_gap <= STEP_RTOL):
             raise AssertionError("the card's train step disagrees with the CPU's")
 
-    # 12. bulk evaluation and TSDF reconstruction at TestConfig
+    # 11b. [parallel] the data-parallel path over NCCL at world size 1
+    parallel = parallel_phase(torch, ps, card, clock)
+
+    # 12. bulk evaluation and TSDF reconstruction at TestConfig, then the
+    # data-parallel bulk driver on the same scenes
     with tempfile.TemporaryDirectory() as tmp:
         bulk = bulk_phases(torch, ps, device, cfg, card, clock, tmp)
+        parallel_bulk_phase(ps, tmp, card, clock)
+
+    # 12a. [proxy] the accuracy proxy's driver at a smoke's size
+    with tempfile.TemporaryDirectory() as tmp:
+        proxy_phase(card, clock, tmp)
 
     # 12b. the four baselines through their evaluation loop
     with tempfile.TemporaryDirectory() as tmp:
@@ -1066,6 +1202,7 @@ def main():
         "bound_ms_bulk": bulk_bound["bound_ms"],
         "bound_by_bulk": bulk_bound["bound_by"],
         "share_of_bound_bulk": bulk_bound["bound_ms"] / bulk_ms,
+        "launches_parallel_step": {k: v["fwd"] for k, v in parallel.items()},
         "shape_baselines_l1": dict(zip("BVCHWP", BASELINE_SWEEP)),
         "launches_baselines_l1": {k: baselines[k]["launches"] for k in ("mvdepthnet", "gpmvs")},
         "max_abs_err_baselines_l1": rgb_err,
@@ -1093,7 +1230,8 @@ def main():
         "timer": TIMER,
         "ms_single_launch": bwd_single_ms,
         "single_launch_timer": SINGLE_LAUNCH_TIMER,
-    }]}))
+        "launches_parallel_step": {k: v["bwd"] for k, v in parallel.items()},
+    }], "parallel_step_ms": {k: v["ms"] for k, v in parallel.items()}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

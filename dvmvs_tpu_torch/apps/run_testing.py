@@ -24,8 +24,15 @@ back every step.
 
 Run on the card (the default; ``--device cpu`` asks for the CPU):
 ``python -m dvmvs_tpu_torch.apps.run_testing --model pairnet --data DIR
---batch-size 8 [--scan-chunk 4]``. Not ported: ``--n-devices`` (data
-parallel) and ``--visualize`` (needs OpenCV windows).
+--batch-size 8 [--scan-chunk 4]``. Not ported: ``--visualize`` (needs
+OpenCV windows).
+
+Data parallel (``--n-devices N`` with ``--batch-size`` or ``--scene-batch``,
+one process a device: ``torchrun --nproc-per-node N -m
+dvmvs_tpu_torch.apps.run_testing --n-devices N ...``): each rank runs its
+rows of every pairnet batch, or its scenes of every lockstep group, and the
+results are gathered; rank 0 writes the same files as one process does.
+``--scan-chunk`` is for one device, as in the JAX driver.
 """
 
 from __future__ import annotations
@@ -37,11 +44,13 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dvmvs_tpu_torch.apps.engine import InferenceEngine
 from dvmvs_tpu_torch.config import MEAN_RGB, SCALE_RGB, STD_RGB, TestConfig
 from dvmvs_tpu_torch.data.io import load_depth_png, load_image
 from dvmvs_tpu_torch.data.preprocess import PreprocessImage
+from dvmvs_tpu_torch.parallel import mesh
 from dvmvs_tpu_torch.utils.checkpoint import load_checkpoint
 from dvmvs_tpu_torch.utils.results import InferenceTimer, save_results
 
@@ -207,6 +216,16 @@ def _upload_steps(engine: InferenceEngine, steps: Dict[str, np.ndarray]):
             for k, v in steps.items()}
 
 
+def _gather_rows(out: torch.Tensor, group) -> torch.Tensor:
+    """(T, B/world, ...) step outputs of every rank -> (T, B, ...) in rank
+    order, on every rank."""
+    if group is None:
+        return out
+    parts = [torch.empty_like(out) for _ in range(mesh.world_size(group))]
+    dist.all_gather(parts, out.contiguous(), group=group)
+    return torch.cat(parts, dim=1)
+
+
 def _check_dtype(bank_dtype: str):
     if bank_dtype not in BANK_DTYPES:
         raise ValueError(f"bank_dtype must be one of {sorted(BANK_DTYPES)}, got {bank_dtype!r}")
@@ -217,7 +236,7 @@ def evaluate_scene_batched(engine: InferenceEngine, scene_folder: str, index_fil
                            cfg: TestConfig, batch_size: int, evaluate: bool = True,
                            max_frames: Optional[int] = None,
                            assets: Optional[SceneAssets] = None, scan_chunk: int = 0,
-                           bank_dtype: str = "bf16"):
+                           bank_dtype: str = "bf16", group=None):
     """Throughput mode (pairnet): B independent keyframes a step. The
     scene's unique frames are encoded once into a device-resident feature
     bank (``bank_dtype`` bf16 halves its memory and is cast to float32
@@ -227,7 +246,9 @@ def evaluate_scene_batched(engine: InferenceEngine, scene_folder: str, index_fil
     with one readback each (``InferenceEngine.predict_pair_steps``).
 
     ``assets``: a prebuilt SceneAssets, so repeated runs over one scene skip
-    the host decode and resize."""
+    the host decode and resize. With a data-parallel ``group`` every rank
+    encodes the bank and runs its rows of each batch (``batch_size`` is the
+    global batch); every rank gets all the predictions."""
     if engine.kind != "pairnet":
         raise ValueError("batched evaluation needs the stateless model (pairnet)")
     dtype = _check_dtype(bank_dtype)
@@ -241,7 +262,9 @@ def evaluate_scene_batched(engine: InferenceEngine, scene_folder: str, index_fil
         assets = SceneAssets(scene_folder, cfg, evaluate)
     unique = list(dict.fromkeys(n for e in entries for n in e))
     bank_index = {n: i for i, n in enumerate(unique)}
-    K_b = engine.upload(np.tile(assets.updated_K[None], (B, 1, 1)))
+    rank, world = mesh.rank(group), mesh.world_size(group)
+    rows = slice(rank * B // world, (rank + 1) * B // world)
+    K_b = engine.upload(np.tile(assets.updated_K[None], (B // world, 1, 1)))
 
     t0 = time.perf_counter()
     bank, images = _encode_bank(engine, unique, assets.image, B, dtype)
@@ -254,11 +277,12 @@ def evaluate_scene_batched(engine: InferenceEngine, scene_folder: str, index_fil
         steps["view_mask"].append(mask)
         steps["ref_pose"].append(assets.pose(e[0]))
         steps["meas_pose"].append([assets.pose(n) for n in names])
-    xs = _upload_steps(engine, {k: np.asarray(v).reshape((-1, B) + np.shape(v)[1:])
+    xs = _upload_steps(engine, {k: np.asarray(v).reshape((-1, B) + np.shape(v)[1:])[:, rows]
                                 for k, v in steps.items()})
     predictions, c = [], 0
     for step in schedule:
         out = engine.predict_pair_steps(bank, images, K_b, {k: v[c:c + step] for k, v in xs.items()})
+        out = _gather_rows(out, group)
         predictions.extend(out.reshape((-1,) + tuple(out.shape[2:])).cpu().numpy())
         c += step
     predictions = predictions[:len(entries)]
@@ -422,6 +446,9 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="test image width (default: config default)")
     ap.add_argument("--height", type=int, default=None,
                     help="test image height (default: config default)")
+    ap.add_argument("--n-devices", type=int, default=None,
+                    help="with --batch-size/--scene-batch: shard each batch over this many "
+                         "devices, one process each (torchrun)")
     args = ap.parse_args(argv)
 
     size_kw = {}
@@ -437,7 +464,27 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.scene_batch is not None and args.model != "fusionnet":
         raise SystemExit("--scene-batch applies to --model fusionnet")
     cfg = TestConfig(n_measurement_frames=args.n_measurement_frames, **size_kw)
-    engine = InferenceEngine(args.model, cfg, device=args.device)
+    if args.n_devices is None:
+        return _evaluate(args, cfg, args.device, None)
+    batch = args.batch_size or args.scene_batch
+    if batch is None:
+        raise SystemExit("--n-devices shards --batch-size (pairnet) or --scene-batch "
+                         "(fusionnet)")
+    if args.scan_chunk and args.n_devices > 1:
+        raise SystemExit("--scan-chunk is single-device (use per-step dispatch with "
+                         "--n-devices)")
+    if batch % args.n_devices:
+        raise SystemExit("batch must divide by --n-devices")
+    group, device = mesh.init_data_parallel(args.n_devices, device=args.device)
+    try:
+        return _evaluate(args, cfg, device, group)
+    finally:
+        mesh.destroy()
+
+
+def _evaluate(args, cfg: TestConfig, device, group):
+    lead = mesh.rank(group) == 0
+    engine = InferenceEngine(args.model, cfg, device=device)
     if args.checkpoint:
         load_checkpoint(args.checkpoint, engine.model)
 
@@ -446,7 +493,8 @@ def main(argv: Optional[Sequence[str]] = None):
         os.path.join(indices_dir, f) for f in os.listdir(indices_dir)
         if (args.dataset_name is None or args.dataset_name in f)
         and f.endswith(f"nmeas+{args.n_measurement_frames}"))
-    print(f"{len(index_files)} index files")
+    if lead:
+        print(f"{len(index_files)} index files")
 
     def parse_job(index_file):
         keyframing_type, dataset_name, scene_name, _, _ = \
@@ -459,33 +507,43 @@ def main(argv: Optional[Sequence[str]] = None):
     evaluate = not args.no_evaluate
     if args.scene_batch is not None:
         SB = args.scene_batch
+        rank, world = mesh.rank(group), mesh.world_size(group)
         for s in range(0, len(index_files), SB):
-            group = index_files[s:s + SB]
-            n_real = len(group)
-            group = _pad_to(group, SB)
-            print(f"Predicting scenes {s}..{s + n_real - 1} of {len(index_files)} "
-                  f"(lockstep batch {SB})")
+            files = index_files[s:s + SB]
+            n_real = len(files)
+            files = _pad_to(files, SB)
+            if lead:
+                print(f"Predicting scenes {s}..{s + n_real - 1} of {len(index_files)} "
+                      f"(lockstep batch {SB})")
+            mine = files[rank * SB // world:(rank + 1) * SB // world]
             results = evaluate_scenes_batched_fusion(
-                engine, [(parse_job(f)[0], f) for f in group], cfg, evaluate=evaluate,
+                engine, [(parse_job(f)[0], f) for f in mine], cfg, evaluate=evaluate,
                 max_frames=args.max_frames, scan_chunk=args.scan_chunk,
                 bank_dtype=args.bank_dtype)
-            for f, (predictions, gts) in list(zip(group, results))[:n_real]:
-                _, scene_name, system_name = parse_job(f)
-                save_results(predictions, gts, system_name, scene_name, args.output)
+            if group is not None:  # every rank's scenes, in rank order
+                parts = [None] * world
+                dist.all_gather_object(parts, results, group=group)
+                results = [r for part in parts for r in part]
+            if lead:
+                for f, (predictions, gts) in list(zip(files, results))[:n_real]:
+                    _, scene_name, system_name = parse_job(f)
+                    save_results(predictions, gts, system_name, scene_name, args.output)
         return
 
     for i, index_file in enumerate(index_files):
         scene_folder, scene_name, system_name = parse_job(index_file)
-        print(f"Predicting for scene {scene_name} - {i}/{len(index_files)}")
+        if lead:
+            print(f"Predicting for scene {scene_name} - {i}/{len(index_files)}")
         if args.batch_size is not None:
             predictions, gts = evaluate_scene_batched(
                 engine, scene_folder, index_file, cfg, args.batch_size, evaluate=evaluate,
                 max_frames=args.max_frames, scan_chunk=args.scan_chunk,
-                bank_dtype=args.bank_dtype)
+                bank_dtype=args.bank_dtype, group=group)
         else:
             predictions, gts = evaluate_scene(engine, scene_folder, index_file, cfg,
                                               evaluate=evaluate, max_frames=args.max_frames)
-        save_results(predictions, gts, system_name, scene_name, args.output)
+        if lead:
+            save_results(predictions, gts, system_name, scene_name, args.output)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""Training driver for pairnet / fusionnet on one device (counterpart of
-dvmvs_tpu/apps/run_training.py; reference: dvmvs/train.py,
-dvmvs/{pairnet,fusionnet}/run-training.py).
+"""Training driver for pairnet / fusionnet, on one device or data-parallel
+over several (counterpart of dvmvs_tpu/apps/run_training.py; reference:
+dvmvs/train.py, dvmvs/{pairnet,fusionnet}/run-training.py).
 
 The reference schedule: staged unfreeze (pairnet 2 stages, fusionnet 3),
 Adam(1e-4), L1-inv loss over 5 scales, per-epoch validation with BatchNorm in
@@ -12,7 +12,20 @@ with a double-buffered host->device input pipeline.
 DIR holds the training layout of scripts/make_synth_scenes.py (per-frame
 ``.npz`` archives, ``poses.txt``, ``K.txt``, ``train.txt`` and
 ``validation.txt``). Frames stored at another size than the training size
-need OpenCV for the resize.
+are resized on the host (``data/preprocess.py::resize``).
+
+Data parallel, one process a card (``parallel/mesh.py``):
+
+    torchrun --nproc-per-node N -m dvmvs_tpu_torch.apps.run_training --n-devices N ...
+
+or, without torchrun, ``--multihost --coordinator-address HOST:PORT
+--num-processes N --process-id R`` in each process. ``--batch-size`` is the
+global batch and must divide by N. Every rank draws the same shuffled
+global batch (so the augmentation streams are those of one process) and
+uploads its rows; the step is that of the global batch
+(``parallel/train.py``). Rank 0 alone writes the run directory, the
+checkpoints, ``metrics.jsonl`` and the resume state. ``--n-devices 1``
+runs the data-parallel path in one process.
 """
 
 from __future__ import annotations
@@ -29,10 +42,13 @@ from dvmvs_tpu_torch.data.dataset import MVSSequenceDataset, batch_iterator, dev
 from dvmvs_tpu_torch.models.fusionnet import FusionNet
 from dvmvs_tpu_torch.models.layers import init_parameters
 from dvmvs_tpu_torch.models.pairnet import PairNet
+from dvmvs_tpu_torch.parallel import mesh
 from dvmvs_tpu_torch.parallel.train import (
     FUSIONNET_STAGES,
     PAIRNET_STAGES,
+    broadcast_state,
     eval_step,
+    make_data_parallel,
     make_optimizer,
     train_step,
 )
@@ -70,17 +86,27 @@ def make_model(kind: str, cfg: TrainConfig, device, seed: int = 0):
     return model.to(device)
 
 
+def rank_batches(dataset, batch_size: int, shuffle: bool, seed: int = 0, group=None):
+    """The global batches of ``batch_iterator``, each cut to this rank's
+    rows when there is a group."""
+    batches = batch_iterator(dataset, batch_size, shuffle=shuffle, seed=seed)
+    if group is None:
+        return batches
+    r, w = mesh.rank(group), mesh.world_size(group)
+    return (mesh.shard_rows(b, r, w) for b in batches)
+
+
 def run_epoch(model, optimizer, dataset, cfg: TrainConfig, device, seed: int, kind: str,
               two_way: bool, flip_generator: torch.Generator, freeze_bn: bool = False,
-              print_frequency: int = 100, max_steps=None, logger=None) -> LossMeter:
+              print_frequency: int = 100, max_steps=None, logger=None,
+              group=None) -> LossMeter:
     """One pass over the shuffled training set (at most ``max_steps``
     optimizer steps). Every ``print_frequency`` steps the loss is read back
     (the only host synchronisation) and printed, and the step's wall time
-    logged."""
+    logged (rank 0 prints; the caller gives rank 0 alone a ``logger``)."""
     meter = LossMeter()
     model.train(not freeze_bn)
-    batches = device_prefetch(batch_iterator(dataset, cfg.batch_size, shuffle=True, seed=seed),
-                              device)
+    batches = device_prefetch(rank_batches(dataset, cfg.batch_size, True, seed, group), device)
     t0 = t_last = time.time()
     n = n_last = 0
     try:
@@ -90,7 +116,7 @@ def run_epoch(model, optimizer, dataset, cfg: TrainConfig, device, seed: int, ki
             # pairnet's flip per direction, drawn on the host: no device sync
             flip_mask = (torch.rand(2 if two_way else 1, generator=flip_generator) > 0.5).tolist()
             metrics = train_step(model, optimizer, batch, kind, cfg.loss_type, two_way,
-                                 flip_mask)
+                                 flip_mask, group)
             n += 1
             if n % print_frequency == 0:
                 loss = float(metrics["loss"])
@@ -99,8 +125,9 @@ def run_epoch(model, optimizer, dataset, cfg: TrainConfig, device, seed: int, ki
                 rate = n * cfg.batch_size / (now - t0)
                 step_ms = (now - t_last) * 1e3 / (n - n_last)
                 t_last, n_last = now, n
-                print(f"  step {n}: loss {loss:.4f} ({meter.avg:.4f} avg) {rate:.1f} samples/s "
-                      f"({step_ms:.1f} ms/step)", flush=True)
+                if mesh.rank(group) == 0:
+                    print(f"  step {n}: loss {loss:.4f} ({meter.avg:.4f} avg) {rate:.1f} "
+                          f"samples/s ({step_ms:.1f} ms/step)", flush=True)
                 if logger is not None:
                     logger.log(n, "train", {"loss": loss, "samples_per_s": rate,
                                             "step_ms": step_ms})
@@ -110,16 +137,18 @@ def run_epoch(model, optimizer, dataset, cfg: TrainConfig, device, seed: int, ki
 
 
 @torch.no_grad()
-def validate(model, dataset, cfg: TrainConfig, device, kind: str, freeze_bn: bool = False):
+def validate(model, dataset, cfg: TrainConfig, device, kind: str, freeze_bn: bool = False,
+             group=None):
     """Mean l1 / l1-inv / l1-rel / huber (of the last scale, see
     parallel/train.py) over the validation set, BatchNorm in eval mode;
-    the model goes back to its training mode afterwards."""
+    the model goes back to its training mode afterwards. With a group each
+    rank runs its rows and the sums are the global batches'."""
     meters = {k: LossMeter() for k in VALIDATION_KEYS}
     model.eval()
     try:
-        for batch in device_prefetch(batch_iterator(dataset, cfg.batch_size, shuffle=False),
+        for batch in device_prefetch(rank_batches(dataset, cfg.batch_size, False, group=group),
                                      device):
-            metrics = eval_step(model, batch, kind, cfg.loss_type)
+            metrics = eval_step(model, batch, kind, cfg.loss_type, group)
             count = max(float(metrics["valid_count"]), 1.0)
             for k in meters:
                 meters[k].update(float(metrics[k]), count)
@@ -174,6 +203,15 @@ def main(argv=None) -> str:
                     help="crawler worker processes")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises if there is no card) or cpu")
+    ap.add_argument("--n-devices", type=int, default=None,
+                    help="data parallel over this many devices, one process each (the "
+                         "world size of torchrun or --multihost; 1 runs the data-parallel "
+                         "path in this process)")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join a process group at --coordinator-address without torchrun")
+    ap.add_argument("--coordinator-address", default=None, help="host:port of rank 0")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args(argv)
 
     kind = args.model
@@ -200,13 +238,34 @@ def main(argv=None) -> str:
                            "torch.cuda.is_available() is false; pass --device cpu to train on "
                            "the CPU")
     freeze_bn = args.freeze_bn or cfg.freeze_batch_normalization
+    group = None
+    if args.n_devices is not None or args.multihost or "WORLD_SIZE" in os.environ:
+        group, device = mesh.init_data_parallel(args.n_devices, args.multihost,
+                                                args.coordinator_address, args.num_processes,
+                                                args.process_id, args.device)
+        if cfg.batch_size % mesh.world_size(group):
+            raise SystemExit(f"--batch-size {cfg.batch_size} must divide by the "
+                             f"{mesh.world_size(group)} devices")
+    try:
+        return _train(args, kind, cfg, device, freeze_bn, group)
+    finally:
+        if group is not None:
+            mesh.destroy()
 
-    run_dir = _run_directory(args.run_directory)
-    print(f"run directory: {run_dir} (device {device})", flush=True)
+
+def _train(args, kind: str, cfg: TrainConfig, device, freeze_bn: bool, group) -> str:
+    lead = mesh.rank(group) == 0
+    run_dir = _run_directory(args.run_directory) if lead else None
+    if lead:
+        print(f"run directory: {run_dir} (device {device}, {mesh.world_size(group)} "
+              f"process(es))", flush=True)
     model = make_model(kind, cfg, device, args.seed)
     if args.warm_start:
         fresh = load_checkpoint(args.warm_start, model, partial=True)
-        print(f"warm-started from {args.warm_start}; fresh: {fresh or 'none'}")
+        if lead:
+            print(f"warm-started from {args.warm_start}; fresh: {fresh or 'none'}")
+    if group is not None:
+        make_data_parallel(model, group)
 
     train_set = MVSSequenceDataset(
         args.dataset, "TRAINING", cfg.subsequence_length, cfg,
@@ -214,10 +273,12 @@ def main(argv=None) -> str:
     val_set = MVSSequenceDataset(
         args.dataset, "VALIDATION", cfg.subsequence_length, cfg,
         seed=args.seed, wire_compact=args.wire_compact)
-    print(f"{len(train_set)} train samples, {len(val_set)} val samples", flush=True)
-
-    logger = RunLogger(run_dir)
-    snapshot_code(run_dir)
+    if lead:
+        print(f"{len(train_set)} train samples, {len(val_set)} val samples", flush=True)
+        logger = RunLogger(run_dir)
+        snapshot_code(run_dir)
+    else:
+        logger = None
     stages = FUSIONNET_STAGES if kind == "fusionnet" else PAIRNET_STAGES
     two_way = kind == "pairnet" and cfg.predict_two_way
     flip_generator = torch.Generator().manual_seed(args.seed)
@@ -242,36 +303,43 @@ def main(argv=None) -> str:
                                        cfg.adam_beta2, cfg.weight_decay)
             if args.resume and stage_i == resume_stage:
                 load_resume_state(args.resume, model, optimizer)
+                if group is not None:
+                    broadcast_state(model, group, optimizer)
             n_epochs = stage_epoch_budget(len(stages), stage_i, epoch, cfg.finetune_epochs,
                                           cfg.epochs)
             for _ in range(n_epochs):
-                print(f"\nEPOCH {epoch} (stage {stage_i}: {modules})", flush=True)
+                if lead:
+                    print(f"\nEPOCH {epoch} (stage {stage_i}: {modules})", flush=True)
                 run_epoch(model, optimizer, train_set, cfg, device, args.seed + epoch, kind,
                           two_way, flip_generator, freeze_bn, print_freq, args.max_steps,
-                          logger)
+                          logger, group)
                 # the resume state is written before validation, so a run
                 # killed while validating resumes after this epoch
-                write_resume_state(run_dir, kind, model, optimizer, epoch + 1, stage_i,
-                                   best_loss)
+                if lead:
+                    write_resume_state(run_dir, kind, model, optimizer, epoch + 1, stage_i,
+                                       best_loss)
                 improved = True
                 if cfg.validate:
-                    losses = validate(model, val_set, cfg, device, kind, freeze_bn)
-                    print("  validation l1/l1-inv/l1-rel/huber: "
-                          + " ".join(f"{v:.4f}" for v in losses), flush=True)
-                    logger.log(epoch, "validation", dict(zip(VALIDATION_KEYS, losses)),
-                               epoch=epoch)
+                    losses = validate(model, val_set, cfg, device, kind, freeze_bn, group)
                     improved = any(v < b for v, b in zip(losses, best_loss))
                     if improved:
                         best_loss = [min(v, b) for v, b in zip(losses, best_loss)]
-                        write_resume_state(run_dir, kind, None, None, epoch + 1, stage_i,
-                                           best_loss)
-                if improved:
+                    if lead:
+                        print("  validation l1/l1-inv/l1-rel/huber: "
+                              + " ".join(f"{v:.4f}" for v in losses), flush=True)
+                        logger.log(epoch, "validation", dict(zip(VALIDATION_KEYS, losses)),
+                                   epoch=epoch)
+                        if improved:
+                            write_resume_state(run_dir, kind, None, None, epoch + 1, stage_i,
+                                               best_loss)
+                if improved and lead:
                     ckpt = os.path.join(run_dir, f"{kind}_epoch{epoch}.pt")
                     save_checkpoint(ckpt, model)
                     print("  saved", ckpt, flush=True)
                 epoch += 1
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return run_dir
 
 

@@ -12,10 +12,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from dvmvs_tpu_torch.ops.sampling import resize_bilinear_align_corners
+from dvmvs_tpu_torch.parallel.mesh import world_size
 
 # Flax keeps 0.9 of the running average per update; torch's momentum is the
 # complement.
@@ -50,6 +52,74 @@ class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
 class BatchNorm3d(_FlaxRunningStats, nn.BatchNorm3d):
     """``nn.BatchNorm3d`` with Flax's running-statistics update (statistics
     over N, D, H, W)."""
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group; the gradient of each rank's input is the
+    sum of the ranks' output gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class SyncBatchNorm2d(BatchNorm2d):
+    """``BatchNorm2d`` whose train-mode statistics are those of the global
+    batch of a data-parallel group, as under pjit. Each rank's biased
+    variance and mean are combined as Chan's parallel update does, with two
+    all-reduces whose backward all-reduces the gradient, so it reaches every
+    rank's input:
+
+        M = sum_r n_r m_r / N,    V = sum_r n_r (v_r + (m_r - M)^2) / N
+
+    and the biased V is folded into ``running_var``, as Flax does (stock
+    ``nn.SyncBatchNorm`` folds in the unbiased one, and needs CUDA). With
+    no group, or a group of one, it is ``BatchNorm2d``."""
+
+    process_group = None
+
+    def forward(self, x):
+        group = self.process_group
+        if not self.training or group is None or world_size(group) == 1:
+            return super().forward(x)
+        dims = (0, *range(2, x.dim()))
+        var, mean = torch.var_mean(x, dim=dims, correction=0)
+        n = torch.full_like(mean[:1], x.numel() / x.shape[1])
+        mean_n = _AllReduceSum.apply(torch.cat([mean * n, n]), group)
+        total = mean_n[-1]
+        mean_g = mean_n[:-1] / total
+        var_g = _AllReduceSum.apply(n * (var + (mean - mean_g) ** 2), group) / total
+        with torch.no_grad():
+            self.running_mean.lerp_(mean_g, self.momentum)
+            self.running_var.lerp_(var_g, self.momentum)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        scale = torch.rsqrt(var_g + self.eps) * self.weight
+        return (x - mean_g.view(shape)) * scale.view(shape) + self.bias.view(shape)
+
+
+def convert_sync_batchnorm(model: nn.Module, group) -> nn.Module:
+    """Replace every ``BatchNorm2d`` of ``model`` by a ``SyncBatchNorm2d``
+    over ``group``, in place, with its parameters and buffers: the
+    state-dict names stay. Returns the model."""
+    for name, child in model.named_children():
+        if type(child) is BatchNorm2d:
+            sync = SyncBatchNorm2d(child.num_features, eps=child.eps, momentum=child.momentum)
+            sync.to(child.weight.device, child.weight.dtype).train(child.training)
+            sync.load_state_dict(child.state_dict())
+            sync.process_group = group
+            setattr(model, name, sync)
+        else:
+            convert_sync_batchnorm(child, group)
+    return model
 
 
 class ConvBnRelu(nn.Sequential):

@@ -1,1 +1,1 @@
-"""Training steps and the staged-unfreeze schedule."""
+"""Training steps, the staged-unfreeze schedule and data-parallel process groups."""

@@ -42,17 +42,24 @@ def calculate_loss(groundtruth: torch.Tensor, prediction: torch.Tensor) -> Dict[
 
 
 def multi_scale_loss(predictions: Sequence[torch.Tensor], weights: Sequence[float],
-                     groundtruth: torch.Tensor, loss_type: str = "L1-inv"):
+                     groundtruth: torch.Tensor, loss_type: str = "L1-inv", group=None):
     """sum_j w_j * (loss_j / valid_count_j); returns (loss, the last scale's
-    terms)."""
+    terms). With a data-parallel ``group``, valid_count_j is the global
+    batch's (all-reduced), so the group's losses sum to the loss of the
+    global batch; the returned terms stay this rank's."""
     key = LOSS_KEY[loss_type]
+    terms = [calculate_loss(groundtruth, pred) for pred in predictions]
+    counts = [t["valid_count"] for t in terms]
+    if group is not None:
+        import torch.distributed as dist
+
+        summed = torch.stack(counts)
+        dist.all_reduce(summed, group=group)
+        counts = list(summed)
     total = 0.0
-    last = None
-    for w, pred in zip(weights, predictions):
-        terms = calculate_loss(groundtruth, pred)
-        total = total + w * (terms[key] / torch.clamp(terms["valid_count"], min=1.0))
-        last = terms
-    return total, last
+    for w, t, count in zip(weights, terms, counts):
+        total = total + w * (t[key] / torch.clamp(count, min=1.0))
+    return total, terms[-1]
 
 
 class LossMeter:
