@@ -48,7 +48,16 @@ backward, one nvcc each, in parallel) and drives both paths of the port:
     batched run;
   - the accuracy proxy's driver (``apps/accuracy_proxy.py``) end to end at a
     smoke's size: corpus, pairnet then fusionnet training, evaluation of
-    both best checkpoints and the report.
+    both best checkpoints and the report;
+  - real data (``data/synth_scannet.py``): a ScanNet-layout .sens of the
+    committed 1296x968 JPEGs (decoded by the port's own decoder and held to
+    OpenCV's pixel digests) and 640x480 depths rendered here, exported by
+    the ScanNet exporter (test and training layouts), indexed, evaluated
+    by ``run_testing`` (pairnet B=8, fusionnet) and ``run_testing_online
+    --visualize`` from JAX-layout msgpack checkpoints (``save_jax_checkpoint``)
+    bit for bit against the same weights put into the engine directly,
+    reconstructed by ``run_tsdf`` and ``point_cloud``, and two fusionnet
+    training steps warm-started from the pairnet msgpack.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. Each phase prints its lines; any failure raises, so the exit code is
@@ -138,6 +147,9 @@ BASELINE_RTOL = 1e-5
 
 # [parallel]: pairnet's training batch; rounds of steps timed in turns
 PAIR_BATCH, PARALLEL_ROUNDS, PARALLEL_STEPS = 14, 3, 3
+# [real-data]: run_testing's pairnet batch; the seed of the weights written as
+# JAX checkpoints (the drivers' engines start from seed 0, so the file decides)
+REAL_BATCH, REAL_SEED = 8, 7
 # [proxy]: the driver at a smoke's size (24 frames crawl into 20 training
 # subsequences of 3 and one validation subsequence, hence batch 1)
 PROXY_ARGS = ["--train-scenes", "2", "--val-scenes", "1", "--eval-scenes", "1",
@@ -595,6 +607,160 @@ def baseline_phases(torch, ps, device, card, clock, tmp):
         if not gap <= BASELINE_RTOL:
             raise AssertionError(f"{name}: card and CPU disagree ({gap:.3e})")
     return out
+
+
+def real_data_phase(torch, ps, device, cfg, card, clock, tmp, corpus):
+    """[real-data]: the path of a ScanNet user on a synthetic scan. Returns
+    the phase's numbers and its kernel launches."""
+    from dvmvs_tpu_torch.apps import run_testing as rt
+    from dvmvs_tpu_torch.apps import run_testing_online, run_training, run_tsdf
+    from dvmvs_tpu_torch.apps.engine import InferenceEngine
+    from dvmvs_tpu_torch.apps.simulate_keyframe_buffer import simulate_dataset
+    from dvmvs_tpu_torch.data import jpeg
+    from dvmvs_tpu_torch.data import synth_scannet as ss
+    from dvmvs_tpu_torch.data.exporters import point_cloud, scannet
+    from dvmvs_tpu_torch.data.scene_folders import spawn_pool
+    from dvmvs_tpu_torch.utils.checkpoint import save_jax_checkpoint
+    from dvmvs_tpu_torch.utils.visualization import VIS_DIR
+
+    start = time.perf_counter()
+    ps.launch_count = ps.backward_launch_count = 0
+    # the committed JPEGs through the port's decoder (its g++ build included
+    # in the first frame), against OpenCV's pixel digests
+    t0 = time.perf_counter()
+    first = jpeg.read_jpeg(str(ss.jpeg_paths()[0]))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = [jpeg.read_jpeg(str(p)) for p in ss.jpeg_paths()]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(decoded)
+    differ = [i for i, (rgb, want) in enumerate(zip(decoded, ss.digests()))
+              if ss.pixel_digest(rgb) != want]
+    if differ or not np.array_equal(first, decoded[0]):
+        raise AssertionError(f"[real-data] JPEG frames {differ} differ from OpenCV's pixels")
+    with spawn_pool(ss.N_FRAMES) as pool:
+        depths = pool.map(ss.render_depth_mm, range(ss.N_FRAMES))
+    scans = os.path.join(tmp, "scans")
+    sens = ss.write_scan(os.path.join(scans, "scene0000_00"), depths)
+    print(f"[real-data] {ss.N_FRAMES} JPEGs of {ss.COLOR_SIZE[0]}x{ss.COLOR_SIZE[1]} (4:2:0, "
+          f"q95) decoded by data/jpeg.py in {decode_ms:.1f} ms a frame on the host (the first "
+          f"with the g++ build {build_s:.2f} s); {len(differ)} of {len(decoded)} frames differ "
+          f"from OpenCV's pixel digests (0 pixels); {os.path.getsize(sens)} bytes of .sens with "
+          f"{ss.DEPTH_SIZE[0]}x{ss.DEPTH_SIZE[1]} depths rendered here, frame {ss.NAN_FRAME}'s "
+          f"pose NaN ({lap(clock):.1f} s) | {card}", flush=True)
+
+    # export: the test layout in this process (timed), the training layout
+    # through the command line (spawned workers); both sanity-checked
+    data = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    scannet.export_scene(os.path.dirname(sens), os.path.join(data, "scannet"), train=False,
+                         frame_skip=1)
+    export_s = (time.perf_counter() - t0) / ss.N_FRAMES
+    train_root = os.path.join(tmp, "scannet_train")
+    problems = scannet.main(["--input", scans, "--output", train_root, "--train",
+                             "--frame-skip", "1", "--workers", "1"])
+    folder = os.path.join(data, "scannet", "scene0000_00")
+    npzs = [f for f in os.listdir(os.path.join(train_root, "scene0000_00")) if f.endswith(".npz")]
+    if problems or scannet.sanity_check(os.path.join(data, "scannet"), False) \
+            or len(npzs) != ss.N_FRAMES - 1 \
+            or len(os.listdir(os.path.join(folder, "images"))) != ss.N_FRAMES:
+        raise AssertionError(f"[real-data] export: problems {problems}, {len(npzs)} npz")
+    simulate_dataset(os.path.join(data, "scannet"), os.path.join(data, "indices"), 2)
+    index = os.path.join(data, "indices", "keyframe+scannet+scene0000_00+nmeas+2")
+    keyframes = sum(line != "TRACKING LOST" for line in rt.read_index(index))
+    print(f"[real-data] exported by data/exporters/scannet.py: test layout {export_s:.3f} s a "
+          f"frame ({ss.N_FRAMES} frames: decode, registration to the depth camera, two PNGs), "
+          f"training layout through its command line {len(npzs)} npz (the NaN-pose frame "
+          f"skipped), sanity_check clean; simulate_keyframe_buffer: {keyframes} keyframes "
+          f"({lap(clock):.1f} s) | {card}", flush=True)
+
+    # the drivers from JAX-layout checkpoints against the same weights put
+    # into the engine directly
+    engines = {kind: InferenceEngine(kind, cfg, device=device, seed=REAL_SEED)
+               for kind in ("pairnet", "fusionnet")}
+    msgpack = {kind: os.path.join(tmp, f"{kind}.msgpack") for kind in engines}
+    for kind, engine in engines.items():
+        save_jax_checkpoint(msgpack[kind], engine.model)
+
+    def saved(out, system):
+        return np.load(os.path.join(out, f"{system}_predictions_scene0000_00.npz"))["arr_0"]
+
+    gaps = {}
+    common = ["--data", data, "--device", str(device), "--output"]
+    fwd0 = ps.launch_count
+    rt.main(common + [os.path.join(tmp, "pair"), "--model", "pairnet", "--batch-size",
+                      str(REAL_BATCH), "--checkpoint", msgpack["pairnet"]])
+    pair_fwd = ps.launch_count - fwd0
+    got = saved(os.path.join(tmp, "pair"), "keyframe_scannet_320_256_2_dvmvs_tpu_torch_pairnet")
+    want, _ = rt.evaluate_scene_batched(engines["pairnet"], folder, index, cfg, REAL_BATCH)
+    gaps["run_testing pairnet B=8"] = float(np.abs(got - np.stack(want)).max())
+    rt.main(common + [os.path.join(tmp, "fusion"), "--model", "fusionnet", "--checkpoint",
+                      msgpack["fusionnet"]])
+    fusion_npz = os.path.join(tmp, "fusion", "keyframe_scannet_320_256_2_dvmvs_tpu_torch_"
+                                             "fusionnet_predictions_scene0000_00.npz")
+    got = np.load(fusion_npz)["arr_0"]
+    want, _ = rt.evaluate_scene(engines["fusionnet"], folder, index, cfg)
+    gaps["run_testing fusionnet"] = float(np.abs(got - np.stack(want)).max())
+    cwd = os.getcwd()
+    os.chdir(tmp)  # --visualize writes under the working directory, as the JAX driver does
+    try:
+        fwd0 = ps.launch_count
+        run_testing_online.main(["--scene", folder, "--checkpoint", msgpack["fusionnet"],
+                                 "--visualize", "--device", str(device), "--output",
+                                 os.path.join(tmp, "online")])
+        online_fwd = ps.launch_count - fwd0
+    finally:
+        os.chdir(cwd)
+    got = saved(os.path.join(tmp, "online"),
+                "keyframe_scannet_320_256_2_dvmvs_tpu_torch_fusionnet_online")
+    want, _ = run_testing_online.predict_scene(engines["fusionnet"], folder, cfg)
+    gaps["run_testing_online fusionnet"] = float(np.abs(got - np.stack(want)).max())
+    panels = sorted(os.listdir(os.path.join(tmp, VIS_DIR)))
+    if any(gaps.values()) or len(got) < 3 or not np.isfinite(got).all() \
+            or len(panels) != 4 * len(got) or pair_fwd < 1 or online_fwd < len(got):
+        raise AssertionError(f"[real-data] checkpoint route: gaps {gaps}, {len(got)} online "
+                             f"keyframes, {len(panels)} panels, launches {pair_fwd}/{online_fwd}")
+    print(f"[real-data] run_testing (pairnet --batch-size {REAL_BATCH}, fusionnet) and "
+          f"run_testing_online --visualize from JAX-layout .msgpack checkpoints "
+          f"(save_jax_checkpoint, seed {REAL_SEED}) against the same weights in the engine: max "
+          f"|depth gap| " + ", ".join(f"{k} {v:g} m" for k, v in gaps.items())
+          + f" (must be 0); {len(got)} online keyframes, {len(panels)} PNG panels; forward "
+          f"launches of the msgpack routes: run_testing pairnet {pair_fwd}, run_testing_online "
+          f"{online_fwd} ({lap(clock):.1f} s) | {card}", flush=True)
+
+    # reconstruction: run_tsdf on the fusionnet predictions, point clouds
+    run_tsdf.main(["--predictions", fusion_npz, "--data", data, "--dataset-name", "scannet",
+                   "--scene", "scene0000_00", "--device", str(device), "--output",
+                   os.path.join(tmp, "recon")])
+    meshes = [f for f in os.listdir(os.path.join(tmp, "recon")) if f.endswith(".ply")]
+    clouds = point_cloud.main(["--dataset", os.path.join(data, "scannet"), "--scene",
+                               "scene0000_00", "--output", os.path.join(tmp, "clouds"),
+                               "--stride", "1"])
+    if len(meshes) != 1 or not clouds or not all(os.path.getsize(p) > 200 for p in clouds):
+        raise AssertionError(f"[real-data] meshes {meshes}, point clouds {clouds}")
+
+    # two fusionnet steps with every module trainable, warm-started from the
+    # pairnet msgpack (lstm_fusion kept fresh), at the training shape
+    fwd0, bwd0 = ps.launch_count, ps.backward_launch_count
+    run_dir = run_training.main(
+        ["--model", "fusionnet", "--dataset", corpus, "--run-directory",
+         os.path.join(tmp, "runs"), "--warm-start", msgpack["pairnet"], "--epochs", "2",
+         "--finetune-epochs", "0", "--max-steps", "1", "--no-validate", "--print-frequency",
+         "1", "--device", str(device)])
+    train_fwd, train_bwd = ps.launch_count - fwd0, ps.backward_launch_count - bwd0
+    losses = [e["loss"] for e in read_run(run_dir)[0]]
+    if len(losses) != 2 or not np.isfinite(losses).all() or train_fwd < 14 or train_bwd < 14:
+        raise AssertionError(f"[real-data] warm-started training: losses {losses}, launches "
+                             f"{train_fwd}/{train_bwd}")
+    seconds = time.perf_counter() - start
+    print(f"[real-data] run_tsdf mesh {meshes[0]} and {len(clouds)} point-cloud PLY files of the "
+          f"exported scene; run_training fusionnet B={TB} S=8 256x256 warm-started from the "
+          f"pairnet .msgpack: losses {', '.join(f'{v:.4f}' for v in losses)}, launches forward "
+          f"{train_fwd}, backward {train_bwd}; phase {seconds:.1f} s, launches forward "
+          f"{ps.launch_count}, backward {ps.backward_launch_count} ({lap(clock):.1f} s) | {card}",
+          flush=True)
+    return {"jpeg_decode_ms": decode_ms, "export_s_per_frame": export_s,
+            "frames_differing": len(differ), "keyframes": keyframes, "depth_gaps": gaps,
+            "seconds": seconds, "fwd": ps.launch_count, "bwd": ps.backward_launch_count}
 
 
 def timed_run(torch, ps, fn):
@@ -1119,6 +1285,9 @@ def main():
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             raise AssertionError(f"the loss did not fall: {losses}")
 
+        # 10b. [real-data]: a ScanNet user's path, training on this corpus
+        real = real_data_phase(torch, ps, device, cfg, card, clock, tmp, corpus)
+
     # 11. [train-ref]: one train step on the card against the CPU, small size
     cfg_small = TrainConfig(image_width=64, image_height=64,
                                          depth=DepthConfig(0.25, 20.0, 16))
@@ -1203,6 +1372,7 @@ def main():
         "bound_by_bulk": bulk_bound["bound_by"],
         "share_of_bound_bulk": bulk_bound["bound_ms"] / bulk_ms,
         "launches_parallel_step": {k: v["fwd"] for k, v in parallel.items()},
+        "launches_real_data": real["fwd"],
         "shape_baselines_l1": dict(zip("BVCHWP", BASELINE_SWEEP)),
         "launches_baselines_l1": {k: baselines[k]["launches"] for k in ("mvdepthnet", "gpmvs")},
         "max_abs_err_baselines_l1": rgb_err,
@@ -1231,7 +1401,9 @@ def main():
         "ms_single_launch": bwd_single_ms,
         "single_launch_timer": SINGLE_LAUNCH_TIMER,
         "launches_parallel_step": {k: v["bwd"] for k, v in parallel.items()},
-    }], "parallel_step_ms": {k: v["ms"] for k, v in parallel.items()}}))
+        "launches_real_data": real["bwd"],
+    }], "parallel_step_ms": {k: v["ms"] for k, v in parallel.items()},
+        "real_data": {k: v for k, v in real.items() if k not in ("fwd", "bwd")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -24,8 +24,9 @@ back every step.
 
 Run on the card (the default; ``--device cpu`` asks for the CPU):
 ``python -m dvmvs_tpu_torch.apps.run_testing --model pairnet --data DIR
---batch-size 8 [--scan-chunk 4]``. Not ported: ``--visualize`` (needs
-OpenCV windows).
+--batch-size 8 [--scan-chunk 4]``. ``--visualize`` writes the sequential
+evaluator's PNG panels under ``visualizations/`` (``utils/visualization.py``;
+the JAX package's live OpenCV windows are not ported).
 
 Data parallel (``--n-devices N`` with ``--batch-size`` or ``--scene-batch``,
 one process a device: ``torchrun --nproc-per-node N -m
@@ -53,6 +54,7 @@ from dvmvs_tpu_torch.data.preprocess import PreprocessImage
 from dvmvs_tpu_torch.parallel import mesh
 from dvmvs_tpu_torch.utils.checkpoint import load_checkpoint
 from dvmvs_tpu_torch.utils.results import InferenceTimer, save_results
+from dvmvs_tpu_torch.utils.visualization import VIS_DIR, save_visualization
 
 BANK_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -164,6 +166,9 @@ def evaluate_scene(engine: InferenceEngine, scene_folder: str, index_file: str,
                                [assets.pose(m) for m in meas_names], assets.updated_K)
         timer.record_end_time_and_elapsed_time()
         predictions.append(depth)
+        if cfg.visualize:
+            save_visualization(VIS_DIR, len(predictions) - 1, ref_image,
+                               assets.image(meas_names[0]), depth, MEAN_RGB, STD_RGB, SCALE_RGB)
 
     timer.print_statistics()
     return predictions, reference_depths
@@ -425,7 +430,8 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--data", required=True, help="folder with indices/ and <dataset>/<scene>/")
     ap.add_argument("--dataset-name", default=None)
     ap.add_argument("--checkpoint", default=None,
-                    help="the port's own checkpoint (utils/checkpoint.py)")
+                    help="a checkpoint of the port (torch.save) or of the JAX package "
+                         "(Flax msgpack; utils/checkpoint.py)")
     ap.add_argument("--output", default="results")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
@@ -446,6 +452,8 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="test image width (default: config default)")
     ap.add_argument("--height", type=int, default=None,
                     help="test image height (default: config default)")
+    ap.add_argument("--visualize", action="store_true",
+                    help=f"sequential mode: write PNG panels of every keyframe under {VIS_DIR}/")
     ap.add_argument("--n-devices", type=int, default=None,
                     help="with --batch-size/--scene-batch: shard each batch over this many "
                          "devices, one process each (torchrun)")
@@ -463,7 +471,8 @@ def main(argv: Optional[Sequence[str]] = None):
                          "within a scene; use --scene-batch)")
     if args.scene_batch is not None and args.model != "fusionnet":
         raise SystemExit("--scene-batch applies to --model fusionnet")
-    cfg = TestConfig(n_measurement_frames=args.n_measurement_frames, **size_kw)
+    cfg = TestConfig(n_measurement_frames=args.n_measurement_frames,
+                     visualize=args.visualize, **size_kw)
     if args.n_devices is None:
         return _evaluate(args, cfg, args.device, None)
     batch = args.batch_size or args.scene_batch

@@ -11,7 +11,9 @@ Run on the card (the default; ``--device cpu`` asks for the CPU):
 ``python -m dvmvs_tpu_torch.apps.run_testing_baseline --baseline
 {mvdepthnet,gpmvs,dpsnet,deltas} --data DIR [--checkpoint model.pt]``.
 ``--checkpoint`` reads the port's own state dict of the baseline's model
-(``torch.save(estimator.model.state_dict(), path)``).
+(``torch.save(estimator.model.state_dict(), path)``) or the JAX package's
+Flax variables of it (msgpack, as its ``run_testing_baseline`` reads them),
+mapped by ``utils/baseline_weights.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import dvmvs_tpu_torch.baselines.mvdepthnet  # noqa: F401
 from dvmvs_tpu_torch.baselines.registry import BASELINE_REGISTRY
 from dvmvs_tpu_torch.data.io import load_depth_png, load_image
 from dvmvs_tpu_torch.data.preprocess import PreprocessImage
+from dvmvs_tpu_torch.utils.baseline_weights import BASELINE_STATE_DICTS
+from dvmvs_tpu_torch.utils.checkpoint import is_jax_checkpoint, read_jax_variables
 from dvmvs_tpu_torch.utils.results import InferenceTimer, save_results
 
 
@@ -106,7 +110,8 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--data", required=True)
     ap.add_argument("--dataset-name", default=None)
     ap.add_argument("--checkpoint", default=None,
-                    help="the port's state dict of the baseline's model (torch.save)")
+                    help="the port's state dict of the baseline's model (torch.save) or the "
+                         "JAX package's Flax variables of it (msgpack)")
     ap.add_argument("--output", default="results")
     ap.add_argument("--n-measurement-frames", type=int, default=2)
     ap.add_argument("--no-evaluate", action="store_true")
@@ -115,8 +120,11 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    state_dict = (torch.load(args.checkpoint, map_location="cpu", weights_only=True)
-                  if args.checkpoint else None)
+    state_dict = None
+    if args.checkpoint and is_jax_checkpoint(args.checkpoint):
+        state_dict = BASELINE_STATE_DICTS[args.baseline](read_jax_variables(args.checkpoint))
+    elif args.checkpoint:
+        state_dict = torch.load(args.checkpoint, map_location="cpu", weights_only=True)
     estimator = BASELINE_REGISTRY[args.baseline](
         n_measurement_frames=args.n_measurement_frames, state_dict=state_dict,
         device=args.device)

@@ -12,13 +12,19 @@ keyframe.
     ``depth/*.png``, ``poses.txt``, ``K.txt``) with the port's own PNG
     reader (``data/io.py``) and resize (``data/preprocess.py``), without
     OpenCV, whatever size the frames are stored at.
+    A worker thread decodes the frames ahead of the loop
+    (``_FramePrefetcher``), so file reads and PNG decodes overlap the device.
   - ``LiveTSDF`` (``--live-tsdf MESH.ply``) fuses every predicted depth into
     a TSDF volume on the device inside the loop (``ops/tsdf.py``) and
     writes the coloured mesh at the end.
+  - ``--visualize`` writes each keyframe's reference and measurement frames
+    and its depth, raw and coloured, as PNG panels under
+    ``visualizations/`` (``utils/visualization.py``); the JAX package's live
+    OpenCV windows are not ported.
 
 Run: ``python -m dvmvs_tpu_torch.apps.run_testing_online --scene DIR
-[--live-tsdf out.ply] [--checkpoint model.pt]`` (on the card; ``--device
-cpu`` asks for the CPU).
+[--live-tsdf out.ply] [--checkpoint model.pt|model.msgpack] [--visualize]``
+(on the card; ``--device cpu`` asks for the CPU).
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from __future__ import annotations
 import argparse
 import itertools
 import os
+import queue
+import threading
 from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,6 +47,7 @@ from dvmvs_tpu_torch.utils.checkpoint import load_checkpoint
 from dvmvs_tpu_torch.utils.keyframe_buffer import KeyframeBuffer
 from dvmvs_tpu_torch.utils.native import write_mesh_ply
 from dvmvs_tpu_torch.utils.results import InferenceTimer, save_results
+from dvmvs_tpu_torch.utils.visualization import VIS_DIR, save_visualization
 
 
 class LiveTSDF:
@@ -89,6 +98,61 @@ class LiveTSDF:
               f"{len(faces)} faces -> {path}")
 
 
+class _FramePrefetcher:
+    """Iterator over ``load(f)`` for ``filenames``, decoded ahead on a worker
+    thread at most ``depth`` frames ahead, so host image reads overlap the
+    device (the reference loads each frame in the loop,
+    run-testing-online.py:104). An exception in the worker is raised to the
+    consumer at the frame it failed on, and the worker then ends; ``close``
+    stops a worker whose frames are no longer wanted."""
+
+    _END = object()
+
+    def __init__(self, filenames: Sequence[str], load: Callable[[str], np.ndarray],
+                 depth: int = 4):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(list(filenames), load),
+                                        name="frame-prefetch", daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _run(self, filenames, load):
+        try:
+            for f in filenames:
+                if not self._put(load(f)):
+                    return
+        except Exception as error:  # handed to the consumer, which raises it
+            self._put(error)
+            return
+        self._put(self._END)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._END:
+            self._thread.join()
+            raise StopIteration
+        if isinstance(item, Exception):
+            self._thread.join()
+            raise item
+        return item
+
+    def close(self):
+        self._stop.set()
+        self._thread.join()
+
+
 def normalize_rgb(image: np.ndarray) -> np.ndarray:
     """RGB (H, W, 3) in 0..255 -> the network's ImageNet-normalised float32."""
     out = image.astype(np.float32) / SCALE_RGB
@@ -112,7 +176,9 @@ def predict_stream(engine: InferenceEngine, frames: Iterable[np.ndarray],
     predicted keyframe, index of each predicted frame). Stops after
     ``max_frames`` predictions when given; ``timer`` times each
     ``encode_and_predict``; ``on_prediction(frame index, depth)`` is called
-    after each prediction.
+    after each prediction. With ``cfg.visualize`` each prediction's panels
+    (reference, best measurement frame, depth) are written under
+    ``VIS_DIR``, numbered from 0, as the JAX driver writes them headless.
     """
     buf = KeyframeBuffer(
         buffer_size=cfg.keyframe_buffer_size,
@@ -134,8 +200,9 @@ def predict_stream(engine: InferenceEngine, frames: Iterable[np.ndarray],
             continue
         if preprocess is not None:
             image = preprocess(image)
+        kept = image if cfg.visualize else None
         if response == 0:
-            buf.buffer[-1] = (pose, engine.encode(image)[0])
+            buf.buffer[-1] = (pose, engine.encode(image)[0], kept)
             continue
 
         measurement_frames = buf.get_best_measurement_frames(cfg.n_measurement_frames)
@@ -146,11 +213,14 @@ def predict_stream(engine: InferenceEngine, frames: Iterable[np.ndarray],
             [e[0] for e in measurement_frames], K)
         if timer is not None:
             timer.record_end_time_and_elapsed_time()
-        buf.buffer[-1] = (pose, f_half)
+        buf.buffer[-1] = (pose, f_half, kept)
         predictions.append(depth)
         indices.append(i)
         if on_prediction is not None:
             on_prediction(i, depth)
+        if cfg.visualize:
+            save_visualization(VIS_DIR, len(predictions) - 1, image, measurement_frames[0][2],
+                               depth, MEAN_RGB, STD_RGB, SCALE_RGB)
     return predictions, indices
 
 
@@ -161,31 +231,34 @@ def predict_scene(engine: InferenceEngine, scene_path: str, cfg: TestConfig,
     ``live_tsdf`` when given. Returns (predictions, ground-truth depths of
     the predicted frames, or None)."""
     scene = load_scene(scene_path)
-    raw = (load_image(f) for f in scene.image_filenames[: len(scene.poses)])
-    first = next(raw)
-    preprocessor = PreprocessImage(
-        K=scene.K, old_width=first.shape[1], old_height=first.shape[0],
-        new_width=cfg.image_width, new_height=cfg.image_height,
-        distortion_crop=cfg.distortion_crop, perform_crop=cfg.perform_crop)
-    current = {}  # the raw frame being streamed, for the TSDF colours
+    raw = _FramePrefetcher(scene.image_filenames[: len(scene.poses)], load_image)
+    try:
+        first = next(raw)
+        preprocessor = PreprocessImage(
+            K=scene.K, old_width=first.shape[1], old_height=first.shape[0],
+            new_width=cfg.image_width, new_height=cfg.image_height,
+            distortion_crop=cfg.distortion_crop, perform_crop=cfg.perform_crop)
+        current = {}  # the raw frame being streamed, for the TSDF colours
 
-    def frames():
-        for image in itertools.chain([first], raw):
-            current["raw"] = image
-            yield image
+        def frames():
+            for image in itertools.chain([first], raw):
+                current["raw"] = image
+                yield image
 
-    K = preprocessor.get_updated_intrinsics().astype(np.float32)
+        K = preprocessor.get_updated_intrinsics().astype(np.float32)
 
-    def fuse(i, depth):
-        color = preprocessor.apply_rgb(current["raw"], 1.0, [0.0] * 3, [1.0] * 3,
-                                       normalize_colors=False)
-        live_tsdf.integrate(color, depth, K, scene.poses[i])
+        def fuse(i, depth):
+            color = preprocessor.apply_rgb(current["raw"], 1.0, [0.0] * 3, [1.0] * 3,
+                                           normalize_colors=False)
+            live_tsdf.integrate(color, depth, K, scene.poses[i])
 
-    timer = InferenceTimer()
-    predictions, indices = predict_stream(
-        engine, frames(), scene.poses, K, cfg, max_frames=max_frames, timer=timer,
-        on_prediction=fuse if live_tsdf is not None else None,
-        preprocess=lambda image: preprocessor.apply_rgb(image, SCALE_RGB, MEAN_RGB, STD_RGB))
+        timer = InferenceTimer()
+        predictions, indices = predict_stream(
+            engine, frames(), scene.poses, K, cfg, max_frames=max_frames, timer=timer,
+            on_prediction=fuse if live_tsdf is not None else None,
+            preprocess=lambda image: preprocessor.apply_rgb(image, SCALE_RGB, MEAN_RGB, STD_RGB))
+    finally:
+        raw.close()
     timer.print_statistics()
     reference_depths = None
     if evaluate and scene.depth_filenames:
@@ -201,7 +274,8 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--model", choices=["pairnet", "fusionnet"], default="fusionnet")
     ap.add_argument("--scene", required=True)
     ap.add_argument("--checkpoint", default=None,
-                    help="the port's own checkpoint (utils/checkpoint.py)")
+                    help="a checkpoint of the port (torch.save) or of the JAX package "
+                         "(Flax msgpack; utils/checkpoint.py)")
     ap.add_argument("--output", default="results")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
@@ -212,6 +286,8 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="test image width (default: config default)")
     ap.add_argument("--height", type=int, default=None,
                     help="test image height (default: config default)")
+    ap.add_argument("--visualize", action="store_true",
+                    help=f"write PNG panels of every keyframe under {VIS_DIR}/")
     ap.add_argument("--live-tsdf", default=None, metavar="MESH.ply",
                     help="fuse the predicted depths into a TSDF volume on the device inside "
                          "the loop; write the coloured mesh here at the end")
@@ -230,7 +306,8 @@ def main(argv: Optional[Sequence[str]] = None):
                 raise SystemExit(f"--{key.split('_')[1]} must be a multiple "
                                  "of 32 (1/32 bottleneck grid)")
             size_kw[key] = flag
-    cfg = TestConfig(n_measurement_frames=args.n_measurement_frames, **size_kw)
+    cfg = TestConfig(n_measurement_frames=args.n_measurement_frames,
+                     visualize=args.visualize, **size_kw)
     engine = InferenceEngine(args.model, cfg, device=args.device)
     if args.checkpoint:
         load_checkpoint(args.checkpoint, engine.model)

@@ -5,7 +5,10 @@ dvmvs/train.py, dvmvs/{pairnet,fusionnet}/run-training.py).
 The reference schedule: staged unfreeze (pairnet 2 stages, fusionnet 3),
 Adam(1e-4), L1-inv loss over 5 scales, per-epoch validation with BatchNorm in
 eval mode, a checkpoint on improvement and a resume state after every epoch,
-with a double-buffered host->device input pipeline.
+with a double-buffered host->device input pipeline. Fusionnet's validation
+also writes depth panels of its first batch (``panels/epoch<N>_{pred,gt}.png``
+in the run directory, the turbo map of ``utils/visualization.py``), as the
+JAX driver does.
 
     python -m dvmvs_tpu_torch.apps.run_training --model fusionnet --dataset DIR
 
@@ -39,14 +42,17 @@ import torch
 
 from dvmvs_tpu_torch.config import TrainConfig
 from dvmvs_tpu_torch.data.dataset import MVSSequenceDataset, batch_iterator, device_prefetch
+from dvmvs_tpu_torch.data.io import write_png
 from dvmvs_tpu_torch.models.fusionnet import FusionNet
 from dvmvs_tpu_torch.models.layers import init_parameters
 from dvmvs_tpu_torch.models.pairnet import PairNet
+from dvmvs_tpu_torch.models.training_heads import fusionnet_train_sequence
 from dvmvs_tpu_torch.parallel import mesh
 from dvmvs_tpu_torch.parallel.train import (
     FUSIONNET_STAGES,
     PAIRNET_STAGES,
     broadcast_state,
+    decode_wire_batch,
     eval_step,
     make_data_parallel,
     make_optimizer,
@@ -61,6 +67,7 @@ from dvmvs_tpu_torch.utils.checkpoint import (
 )
 from dvmvs_tpu_torch.utils.losses import LossMeter
 from dvmvs_tpu_torch.utils.run_logging import RunLogger, snapshot_code
+from dvmvs_tpu_torch.utils.visualization import colorize_depth
 
 VALIDATION_KEYS = ("l1", "l1_inv", "l1_rel", "huber")
 
@@ -138,20 +145,33 @@ def run_epoch(model, optimizer, dataset, cfg: TrainConfig, device, seed: int, ki
 
 @torch.no_grad()
 def validate(model, dataset, cfg: TrainConfig, device, kind: str, freeze_bn: bool = False,
-             group=None):
+             group=None, panels=None, epoch: int = 0):
     """Mean l1 / l1-inv / l1-rel / huber (of the last scale, see
     parallel/train.py) over the validation set, BatchNorm in eval mode;
     the model goes back to its training mode afterwards. With a group each
-    rank runs its rows and the sums are the global batches'."""
+    rank runs its rows and the sums are the global batches'. With
+    ``panels`` (a directory) fusionnet's full-resolution depth of the first
+    batch's first sample at its last step is written beside its ground
+    truth, coloured (the reference's periodic image grid, dvmvs/train.py:47-77)."""
     meters = {k: LossMeter() for k in VALIDATION_KEYS}
+    first = None
     model.eval()
     try:
         for batch in device_prefetch(rank_batches(dataset, cfg.batch_size, False, group=group),
                                      device):
+            first = batch if first is None else first
             metrics = eval_step(model, batch, kind, cfg.loss_type, group)
             count = max(float(metrics["valid_count"]), 1.0)
             for k in meters:
                 meters[k].update(float(metrics[k]), count)
+        if panels is not None and kind == "fusionnet" and first is not None:
+            batch = decode_wire_batch(first)
+            full = fusionnet_train_sequence(model, batch["images"], batch["depths"],
+                                            batch["poses"], batch["K"])[0]
+            os.makedirs(panels, exist_ok=True)
+            for name, depth in (("pred", full[-1, 0]), ("gt", batch["depths"][0, -1])):
+                write_png(os.path.join(panels, f"epoch{epoch:04d}_{name}.png"),
+                          colorize_depth(depth.float().cpu().numpy()))
     finally:
         model.train(not freeze_bn)
     return [meters[k].avg for k in VALIDATION_KEYS]
@@ -175,7 +195,8 @@ def main(argv=None) -> str:
     ap.add_argument("--dataset", required=True)
     ap.add_argument("--run-directory", default="training-runs")
     ap.add_argument("--warm-start", default=None,
-                    help="checkpoint to initialise from (module by module)")
+                    help="checkpoint of the port or of the JAX package (Flax msgpack) to "
+                         "initialise from, module by module")
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--finetune-epochs", type=int, default=None,
@@ -320,7 +341,8 @@ def _train(args, kind: str, cfg: TrainConfig, device, freeze_bn: bool, group) ->
                                        best_loss)
                 improved = True
                 if cfg.validate:
-                    losses = validate(model, val_set, cfg, device, kind, freeze_bn, group)
+                    losses = validate(model, val_set, cfg, device, kind, freeze_bn, group,
+                                      os.path.join(run_dir, "panels") if lead else None, epoch)
                     improved = any(v < b for v, b in zip(losses, best_loss))
                     if improved:
                         best_loss = [min(v, b) for v, b in zip(losses, best_loss)]

@@ -10,18 +10,23 @@ IDAT and IEND chunks (CRCs checked; other chunks skipped), the five scanline
 filters, 8-bit gray, RGB and RGBA and 16-bit (big-endian) gray, without
 interlacing. Anything else raises ``ValueError`` naming the file.
 ``write_png`` writes 8-bit RGB and 8/16-bit gray PNGs (filter 0), so scene
-folders can be made where there is no OpenCV.
+folders can be made where there is no OpenCV. ``read_image`` and
+``load_image`` also take baseline JPEGs (``data/jpeg.py``), as the raw
+datasets the exporters read hold them.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import struct
 import zlib
 from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
+
+from dvmvs_tpu_torch.data.jpeg import read_jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels: 0 gray, 2 RGB, 6 RGBA (palette and gray+alpha are not read)
@@ -128,20 +133,51 @@ def write_png(path: str, image: np.ndarray, level: int = 6):
         fh.write(data)
 
 
-def load_image(path: str) -> np.ndarray:
-    """RGB float32 (H, W, 3), values 0..255 (as cv2.imread in colour mode,
-    then BGR to RGB: gray is repeated, alpha dropped, 16 bits cut to 8)."""
-    image = read_png(path)
+def read_image(path: str) -> np.ndarray:
+    """A PNG or JPEG file as stored, told apart by content (as
+    ``cv2.imread(path, IMREAD_UNCHANGED)``, then BGR to RGB)."""
+    with open(path, "rb") as fh:
+        head = fh.read(2)
+    return read_jpeg(path) if head == b"\xff\xd8" else read_png(path)
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """RGB uint8 (H, W, 3) (as cv2.imread in colour mode, then BGR to RGB:
+    gray is repeated, alpha dropped, 16 bits cut to 8)."""
+    image = read_image(path)
     if image.dtype == np.uint16:
         image = (image >> 8).astype(np.uint8)
     if image.ndim == 2:
         image = np.repeat(image[:, :, None], 3, axis=2)
-    return image[:, :, :3].astype(np.float32)
+    return image[:, :, :3]
+
+
+def load_image(path: str) -> np.ndarray:
+    """RGB float32 (H, W, 3), values 0..255 (``read_rgb``)."""
+    return read_rgb(path).astype(np.float32)
 
 
 def load_depth_png(path: str, scaling: float = 1000.0) -> np.ndarray:
     """uint16 millimeter PNG -> float32 meters."""
     return read_png(path).astype(np.float32) / scaling
+
+
+def read_pfm(path: str):
+    """Read a PFM image (reference: dataset/utils.py:68-108): (data (H, W) or
+    (H, W, 3) float32, top row first; scale). PFM stores rows bottom-up and
+    gives the byte order by the sign of the scale."""
+    with open(path, "rb") as f:
+        header = f.readline().rstrip()
+        if header not in (b"PF", b"Pf"):
+            raise ValueError(f"{path}: not a PFM file")
+        dims = re.match(rb"^(\d+)\s(\d+)\s$", f.readline())
+        if not dims:
+            raise ValueError(f"{path}: malformed PFM header")
+        width, height = map(int, dims.groups())
+        scale = float(f.readline().rstrip())
+        data = np.fromfile(f, ("<" if scale < 0 else ">") + "f")
+    shape = (height, width, 3) if header == b"PF" else (height, width)
+    return np.flipud(data.reshape(shape)).astype(np.float32), abs(scale)
 
 
 @dataclass

@@ -10,6 +10,13 @@ and moved into place with ``os.replace``, so a run killed at any instant
 leaves the previous file or the new one, never half of one. Loading maps
 tensors to the model's device; a partial load (pairnet into fusionnet's
 shared modules) goes module by module.
+
+The JAX package's checkpoints (``dvmvs_tpu/utils/checkpoint.py``: the
+Flax ``{"params", "batch_stats"}`` tree as msgpack) are read and written
+here without flax (``utils/msgpack.py``) through the weight bridge
+(``utils/weights.py``). ``load_checkpoint`` tells the two formats apart by
+content (``is_jax_checkpoint``), so every ``--checkpoint`` and
+``--warm-start`` takes either.
 """
 
 from __future__ import annotations
@@ -20,14 +27,17 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from dvmvs_tpu_torch.utils import msgpack
+from dvmvs_tpu_torch.utils.weights import jax_variables, load_jax_variables
+
 MODULE_NAMES = ("feature_extractor", "feature_shrinker", "cost_volume_encoder",
                 "lstm_fusion", "cost_volume_decoder")
 
 
-def _atomic_save(obj, path: str):
+def _atomic_save(obj, path: str, save=torch.save):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.tmp"
-    torch.save(obj, tmp)
+    save(obj, tmp)
     os.replace(tmp, path)
 
 
@@ -48,10 +58,12 @@ def _device(model) -> torch.device:
 
 
 def load_checkpoint(path: str, model, partial: bool = False) -> Sequence[str]:
-    """Load a checkpoint into ``model``; with ``partial`` a module the
-    checkpoint lacks keeps its values (a pairnet checkpoint warm-starts
-    fusionnet, whose ``lstm_fusion`` stays fresh). Returns the names of the
-    modules kept fresh."""
+    """Load a checkpoint of the port or of the JAX package into ``model``;
+    with ``partial`` a module the checkpoint lacks keeps its values (a
+    pairnet checkpoint warm-starts fusionnet, whose ``lstm_fusion`` stays
+    fresh). Returns the names of the modules kept fresh."""
+    if is_jax_checkpoint(path):
+        return load_jax_checkpoint(path, model, partial)
     state = torch.load(path, map_location=_device(model), weights_only=True)
     fresh = []
     for name, module in _modules(model).items():
@@ -62,6 +74,66 @@ def load_checkpoint(path: str, model, partial: bool = False) -> Sequence[str]:
         else:
             raise KeyError(f"{path} holds no {name!r} (modules: {sorted(state)})")
     return fresh
+
+
+def is_jax_checkpoint(path: str) -> bool:
+    """Whether ``path`` holds a msgpack map with a str key first, as Flax
+    writes a variables tree. The port's ``torch.save`` files are zip archives
+    ("PK"); a legacy pickle starts with 0x80, which as msgpack is an empty
+    map and is refused here."""
+    with open(path, "rb") as f:
+        head = f.read(6)
+    if not head:
+        return False
+    b, skip = head[0], {0xde: 3, 0xdf: 5}.get(head[0], 1)
+    if not (0x81 <= b <= 0x8f or b in (0xde, 0xdf)) or len(head) <= skip:
+        return False
+    key = head[skip]
+    return 0xa0 <= key <= 0xbf or key in (0xd9, 0xda, 0xdb)
+
+
+def _numpy(tree):
+    """Tensor leaves of a decoded tree as NumPy arrays (bfloat16, which NumPy
+    lacks, as float32)."""
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return (tree.float() if tree.dtype == torch.bfloat16 else tree).numpy()
+    return tree
+
+
+def read_jax_variables(path: str) -> dict:
+    """The raw tree of a Flax msgpack file, NumPy leaves (the JAX package's
+    ``load_checkpoint(path, None)``)."""
+    with open(path, "rb") as f:
+        return _numpy(msgpack.unpackb(f.read()))
+
+
+def load_jax_checkpoint(path: str, model, partial: bool = False) -> Sequence[str]:
+    """Load a checkpoint written by the JAX package (``save_checkpoint`` of
+    its PairNet or FusionNet variables) into ``model``, on the model's
+    device. With ``partial`` (``load_checkpoint_partial``, the warm start) a
+    module the file lacks keeps its values and is printed as the JAX package
+    prints it. Returns the names of the modules kept fresh."""
+    variables = read_jax_variables(path)
+    params, stats = variables.get("params", {}), variables.get("batch_stats", {})
+    fresh = [name for name in _modules(model) if name not in params]
+    if fresh and not partial:
+        raise KeyError(f"{path} holds no {fresh[0]!r} (modules: {sorted(params)})")
+    for name in fresh:
+        print(f"warm-start: keeping fresh init for /params/{name}")
+    load_jax_variables(model, variables, skip=fresh)
+    return fresh
+
+
+def save_jax_checkpoint(path: str, model):
+    """Write ``model``'s weights as the JAX package's ``save_checkpoint``
+    writes its variables: the bytes Flax writes for the same tree."""
+    def write(tree, tmp):
+        with open(tmp, "wb") as f:
+            f.write(msgpack.packb(tree))
+
+    _atomic_save(jax_variables(model), path, save=write)
 
 
 def resume_path(run_dir: str, kind: str) -> str:

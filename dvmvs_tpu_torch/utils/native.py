@@ -1,15 +1,18 @@
-"""ctypes bindings of the repo's native marching cubes and PLY writers
+"""Host C++ libraries of the port, built at first use, and the ctypes
+bindings of the repo's native marching cubes and PLY writers
 (``native/marching_cubes.cpp``, ``native/mc_tables.h``; counterpart of
 dvmvs_tpu/utils/native.py).
 
-At first use the source is compiled with ``g++`` (on the card's machine it
-is nvcc's host compiler) into ``build/native/<name>-<hash>/`` at the root of
-the checkout, in a directory keyed by a hash of the sources, the flags and
-the compiler's version, written under a temporary name and moved into place
-(the scheme of ``ops/cuda_build.py``). Nothing is written into ``native/``,
-and the library tracked there, built elsewhere for another CPU, is never
-loaded. A failed build raises ``NativeBuildError`` with the compiler's
-output.
+A ``NativeSource`` names a library and its sources (the first is compiled,
+all are hashed). At first use it is compiled with ``g++`` (on the card's
+machine it is nvcc's host compiler) into ``build/native/<name>-<hash>/`` at
+the root of the checkout, in a directory keyed by a hash of the sources,
+the flags and the compiler's version, written under a temporary name and
+moved into place (the scheme of ``ops/cuda_build.py``). Nothing is written
+into ``native/``, and the library tracked there, built elsewhere for another
+CPU, is never loaded. A failed build raises ``NativeBuildError`` with the
+compiler's output. The JPEG entropy decoder (``data/jpeg.py``) is built the
+same way from ``dvmvs_tpu_torch/csrc/jpeg_huffman.cpp``.
 """
 
 from __future__ import annotations
@@ -20,16 +23,28 @@ import hashlib
 import os
 import shutil
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 
 NATIVE = Path(__file__).resolve().parents[2] / "native"
-SOURCES = ("marching_cubes.cpp", "mc_tables.h")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
-NAME = "dvmvs_native"
+
+
+@dataclass(frozen=True)
+class NativeSource:
+    """A shared library built from ``sources`` in ``directory`` (the first is
+    compiled; the others are headers it includes, hashed with it)."""
+
+    name: str
+    directory: Path
+    sources: Tuple[str, ...]
+
+
+MARCHING_CUBES = NativeSource("dvmvs_native", NATIVE, ("marching_cubes.cpp", "mc_tables.h"))
 
 
 class NativeBuildError(RuntimeError):
@@ -43,27 +58,28 @@ def _compiler() -> str:
     return cxx
 
 
-def library_path(cxx: str) -> Path:
+def library_path(cxx: str, spec: NativeSource = MARCHING_CUBES) -> Path:
     digest = hashlib.sha256()
-    for name in SOURCES:
-        digest.update((NATIVE / name).read_bytes())
+    for name in spec.sources:
+        digest.update((spec.directory / name).read_bytes())
     digest.update(" ".join(CXX_FLAGS).encode())
     version = subprocess.run([cxx, "-dumpfullversion", "-dumpmachine"], capture_output=True,
                              text=True, timeout=60).stdout
     digest.update(version.encode())
-    return BUILD_ROOT / f"{NAME}-{digest.hexdigest()[:16]}" / f"lib{NAME}.so"
+    return BUILD_ROOT / f"{spec.name}-{digest.hexdigest()[:16]}" / f"lib{spec.name}.so"
 
 
-def build() -> Path:
-    """Compile the native library unless one of the same hash exists;
+def build(spec: NativeSource = MARCHING_CUBES) -> Path:
+    """Compile ``spec``'s library unless one of the same hash exists;
     returns its path."""
     cxx = _compiler()
-    lib = library_path(cxx)
+    lib = library_path(cxx, spec)
     if lib.is_file():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [cxx, *CXX_FLAGS, "-I", str(NATIVE), "-o", str(tmp), str(NATIVE / SOURCES[0])]
+    cmd = [cxx, *CXX_FLAGS, "-I", str(spec.directory), "-o", str(tmp),
+           str(spec.directory / spec.sources[0])]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -121,14 +121,76 @@ def entries_state_dict(entries: Iterable[Entry], params, batch_stats) -> Dict[st
     return sd
 
 
-def load_jax_variables(model: torch.nn.Module, variables) -> None:
+def load_jax_variables(model: torch.nn.Module, variables, skip: Iterable[str] = ()) -> None:
     """Copy a Flax variables tree into ``model`` (PairNet or FusionNet),
-    module by module, with strict key checking."""
+    module by module, with strict key checking; the modules named in
+    ``skip`` keep their values."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     for name in MODULE_ENTRIES:
         module = getattr(model, name, None)
-        if module is None:
+        if module is None or name in skip:
             continue
         sd = entries_state_dict(MODULE_ENTRIES[name](), params[name], stats.get(name, {}))
         module.load_state_dict(sd, strict=True)
+
+
+def _set(tree, path, value):
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def entries_variables(entries: Iterable[Entry], sd) -> Tuple[dict, dict]:
+    """The inverse of ``entries_state_dict``: Flax ``(params, batch_stats)``
+    trees of float32 arrays read from a state dict."""
+    params, stats = {}, {}
+
+    def conv(prefix, path, bias):
+        _set(params, path + ("kernel",), _array(sd[_key(prefix, "weight")].permute(2, 3, 1, 0)))
+        if bias:
+            _set(params, path + ("bias",), _array(sd[_key(prefix, "bias")]))
+
+    def bn(prefix, path):
+        _set(params, path + ("scale",), _array(sd[_key(prefix, "weight")]))
+        _set(params, path + ("bias",), _array(sd[_key(prefix, "bias")]))
+        _set(stats, path + ("mean",), _array(sd[_key(prefix, "running_mean")]))
+        _set(stats, path + ("var",), _array(sd[_key(prefix, "running_var")]))
+
+    for prefix, path, kind in entries:
+        if kind == CONV_BN:
+            conv(_key(prefix, "0"), path + ("conv",), bias=False)
+            bn(_key(prefix, "1"), path + ("bn",))
+        elif kind == BN:
+            bn(prefix, path)
+        else:
+            conv(prefix, path, bias=kind == CONV_BIAS)
+    return params, stats
+
+
+def _sorted(tree):
+    if not isinstance(tree, dict):
+        return tree
+    return {k: _sorted(tree[k]) for k in sorted(tree)}
+
+
+def jax_variables(model: torch.nn.Module) -> dict:
+    """The Flax ``{"params", "batch_stats"}`` tree of ``model`` (PairNet or
+    FusionNet): the inverse of ``load_jax_variables``, module by module. Keys
+    are sorted at every level, as in the trees JAX's tree functions return
+    (``jax.tree.map``, a jitted init), so Flax serialises both to the same
+    bytes."""
+    params, stats = {}, {}
+    for name in MODULE_ENTRIES:
+        module = getattr(model, name, None)
+        if module is None:
+            continue
+        p, s = entries_variables(MODULE_ENTRIES[name](), module.state_dict())
+        params[name] = p
+        if s:
+            stats[name] = s
+    return _sorted({"params": params, "batch_stats": stats})

@@ -1,10 +1,11 @@
-"""Package hygiene of dvmvs_tpu_torch: it imports neither jax nor OpenCV
-nor any module of the JAX package, and neither it nor chip_smoke.py names
-one in an import or a path; it never loads the native library tracked in
-native/ (built elsewhere for another CPU) but builds its own; its kernel
-build reports compiler failures, builds all sources at once and rebuilds
-when an included header changes, and chip_smoke.py refuses to run without a
-GPU.
+"""Package hygiene of dvmvs_tpu_torch: it imports neither jax nor flax nor
+msgpack nor OpenCV nor PIL nor imageio nor any module of the JAX package,
+and neither it nor chip_smoke.py names one in an import or a path; it never
+loads the native library tracked in native/ (built elsewhere for another
+CPU) but builds its own; its kernel build reports compiler failures, builds
+all sources at once and rebuilds when an included header changes, its host
+C++ (the JPEG entropy decoder) rebuilds when its source changes, and
+chip_smoke.py refuses to run without a GPU.
 """
 
 import ast
@@ -22,6 +23,10 @@ import torch
 from dvmvs_tpu_torch.ops import cuda_build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# top-level modules the port and chip_smoke.py may not load: the card's
+# machine has none of them
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "cv2", "PIL", "imageio", "dvmvs_tpu")
+FORBID = f"FORBIDDEN = {FORBIDDEN!r}\n"  # the same list in a subprocess's code
 
 
 def test_port_imports_no_jax_or_cv2():
@@ -33,16 +38,17 @@ def test_port_imports_no_jax_or_cv2():
         for name in names:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "dvmvs_tpu"))
+                     if m.split(".")[0] in FORBIDDEN)
         print(json.dumps({"names": names, "bad": bad}))
     """)
-    out = subprocess.run([sys.executable, "-c", "import json\n" + code], cwd=ROOT,
+    out = subprocess.run([sys.executable, "-c", "import json\n" + FORBID + code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300, check=True).stdout
     result = json.loads(out)
     assert result["bad"] == []
     assert TRAINING_MODULES <= set(result["names"])  # the training slice was walked too
     assert BULK_MODULES <= set(result["names"])
     assert BASELINE_MODULES <= set(result["names"])
+    assert REAL_DATA_MODULES <= set(result["names"])
     assert len(result["names"]) >= 35
 
 
@@ -55,6 +61,83 @@ BASELINE_MODULES = {f"dvmvs_tpu_torch.{m}" for m in (
     "apps.run_testing_baseline", "baselines", "baselines.registry", "baselines.mvdepth_backbone",
     "baselines.mvdepthnet", "baselines.gpmvs", "baselines.dpsnet", "baselines.deltas",
     "utils.baseline_weights")}
+
+
+REAL_DATA_MODULES = {f"dvmvs_tpu_torch.{m}" for m in (
+    "data.jpeg", "data.synth_scannet", "data.exporters", "data.exporters.scannet",
+    "data.exporters.sevenscenes", "data.exporters.tum_rgbd", "data.exporters.iclnuim",
+    "data.exporters.rgbd_scenes", "data.exporters.point_cloud", "utils.msgpack",
+    "utils.visualization", "utils.profiling")}
+
+
+def test_exporter_and_checkpoint_paths_load_no_forbidden_module(tmp_path):
+    """Export a small .sens (JPEG colour written here by cv2) in both layouts,
+    write and read a JAX-layout checkpoint of pairnet and load it into
+    fusionnet as a warm start, and write visualization panels: none of it
+    loads jax, flax, msgpack, cv2, PIL, imageio or dvmvs_tpu."""
+    import cv2
+    import numpy as np
+
+    from dvmvs_tpu_torch.data.synth_scannet import write_sens
+
+    rs = np.random.RandomState(0)
+    K = np.array([[20.0, 0, 12], [0, 20.0, 8], [0, 0, 1]])
+    poses = [np.eye(4)] * 3
+    jpegs = [cv2.imencode(".jpg", rs.randint(0, 255, (16, 24, 3)).astype(np.uint8))[1].tobytes()
+             for _ in poses]
+    depths = [rs.randint(500, 3000, (16, 24)).astype(np.uint16) for _ in poses]
+    write_sens(str(tmp_path / "scan" / "scan.sens"), K, K, (24, 16), (24, 16), poses, jpegs,
+               depths)
+    code = textwrap.dedent(f"""
+        import json, sys
+        import numpy as np
+        from dvmvs_tpu_torch.apps.engine import InferenceEngine
+        from dvmvs_tpu_torch.config import TestConfig
+        from dvmvs_tpu_torch.data.exporters import scannet
+        from dvmvs_tpu_torch.utils import checkpoint
+        from dvmvs_tpu_torch.utils.visualization import save_visualization
+        root = {str(tmp_path)!r}
+        for train in (False, True):
+            out = root + ("/train" if train else "/test")
+            scannet.export_scene(root + "/scan", out, train, 1)
+            assert scannet.sanity_check(out, train) == []
+        cfg = TestConfig(image_width=64, image_height=64)
+        pair = InferenceEngine("pairnet", cfg, device="cpu", seed=1)
+        checkpoint.save_jax_checkpoint(root + "/pair.msgpack", pair.model)
+        fusion = InferenceEngine("fusionnet", cfg, device="cpu", seed=2)
+        fresh = checkpoint.load_checkpoint(root + "/pair.msgpack", fusion.model, partial=True)
+        image = np.zeros((8, 8, 3), np.float32)
+        save_visualization(root + "/vis", 0, image, image, np.ones((8, 8), np.float32),
+                           [0.0] * 3, [1.0] * 3, 1.0)
+        print(json.dumps({{"fresh": fresh,
+                          "bad": sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)}}))
+    """)
+    out = subprocess.run([sys.executable, "-c", FORBID + code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    result = json.loads(out.splitlines()[-1])
+    assert result == {"fresh": ["lstm_fusion"], "bad": []}
+    assert len(os.listdir(tmp_path / "test" / "scan" / "images")) == 3
+    assert len(os.listdir(tmp_path / "vis")) == 4
+
+
+def test_editing_the_jpeg_source_rebuilds_it(tmp_path, monkeypatch):
+    """The JPEG entropy decoder is built by g++ into a directory keyed by
+    the hash of its source: an edit gives a new library, built anew."""
+    from dvmvs_tpu_torch.data import jpeg
+    from dvmvs_tpu_torch.utils import native
+
+    monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "build")
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    shutil.copy(jpeg.JPEG_HUFFMAN.directory / "jpeg_huffman.cpp", csrc)
+    spec = native.NativeSource("jpeg_huffman", csrc, ("jpeg_huffman.cpp",))
+    first = native.build(spec)
+    assert first.is_file() and first.parent.parent == tmp_path / "build"
+    assert native.build(spec) == first  # found by hash, not rebuilt
+    source = csrc / "jpeg_huffman.cpp"
+    source.write_text(source.read_text() + "\n// edited\n")
+    second = native.build(spec)
+    assert second != first and second.is_file() and first.is_file()
 
 
 def test_baselines_path_loads_no_jax_or_cv2():
@@ -76,9 +159,9 @@ def test_baselines_path_loads_no_jax_or_cv2():
         print(json.dumps({
             "registered": sorted(BASELINE_REGISTRY), "shape": list(depth.shape),
             "bad": sorted(m for m in sys.modules
-                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "dvmvs_tpu"))}))
+                          if m.split(".")[0] in FORBIDDEN)}))
     """)
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+    out = subprocess.run([sys.executable, "-c", FORBID + code], cwd=ROOT, capture_output=True, text=True,
                          timeout=300, check=True).stdout
     result = json.loads(out.splitlines()[-1])
     assert result["bad"] == []
@@ -110,11 +193,11 @@ def test_bulk_and_tsdf_paths_load_no_jax_cv2_or_tracked_native_library(tmp_path)
         maps = open("/proc/self/maps").read()
         print(json.dumps({{
             "bad": sorted(m for m in sys.modules
-                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "dvmvs_tpu")),
+                          if m.split(".")[0] in FORBIDDEN),
             "libs": sorted({{l.split()[-1] for l in maps.splitlines() if "dvmvs_native" in l}}),
             "verts": len(verts)}}))
     """)
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+    out = subprocess.run([sys.executable, "-c", FORBID + code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300, check=True).stdout
     result = json.loads(out.splitlines()[-1])
     assert result["bad"] == [] and result["verts"] > 0
@@ -173,8 +256,32 @@ def test_port_sources_name_no_module_or_path_of_the_jax_package():
     assert {os.path.join(ROOT, "dvmvs_tpu_torch", *m.split(".")[1:]) + ".py"
             for m in BULK_MODULES} <= set(sources)
     found = {os.path.relpath(p, ROOT): jax_package_references(open(p).read())
-             + tracked_library_references(open(p).read()) for p in sources}
+             + tracked_library_references(open(p).read()) + forbidden_imports(open(p).read())
+             for p in sources}
     assert {p: refs for p, refs in found.items() if refs} == {}
+
+
+def forbidden_imports(source: str) -> list:
+    """Import statements of a FORBIDDEN top-level module anywhere in a source
+    (chip_smoke.py imports inside functions, which running it here would not
+    reach)."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        found += [f"line {node.lineno}: import {n}" for n in names
+                  if n.split(".")[0] in FORBIDDEN]
+    return found
+
+
+def test_the_forbidden_import_scan_finds_them():
+    assert forbidden_imports("def f():\n    import msgpack\n")
+    assert forbidden_imports("from PIL import Image")
+    assert forbidden_imports("import cv2 as c")
+    assert not forbidden_imports("from dvmvs_tpu_torch.utils import msgpack")
 
 
 def tracked_library_references(source: str) -> list:
