@@ -49,6 +49,18 @@ backward, one nvcc each, in parallel) and drives both paths of the port:
   - the accuracy proxy's driver (``apps/accuracy_proxy.py``) end to end at a
     smoke's size: corpus, pairnet then fusionnet training, evaluation of
     both best checkpoints and the report;
+  - CUDA graphs ([graphs]): the engine runs each serving step as one graph
+    replay by default (``apps/graphs.py``). The 40-frame stream, fusionnet
+    and pairnet, through a graphed and an eager engine: depths and kept
+    features bit for bit (at most REF_RTOL), cost volumes within CV_RTOL,
+    one forward launch counted a replay, and a profiled pass showing each
+    ``encode_and_predict`` as one ``cudaGraphLaunch`` and no kernel launch
+    besides its copies; ``run_testing``'s pairnet B=8 and lockstep
+    fusionnet chunks of 4 (one replay a chunk) with float32 and bfloat16
+    banks against the eager sequential depths and the eager chunks' cost
+    volumes; and planted faults (kept features that alias the output
+    buffer, a state reassigned instead of written in place) shown to break
+    those limits;
   - real data (``data/synth_scannet.py``): a ScanNet-layout .sens of the
     committed 1296x968 JPEGs (decoded by the port's own decoder and held to
     OpenCV's pixel digests) and 640x480 depths rendered here, exported by
@@ -70,6 +82,7 @@ with the kernels' measurements, and as the last line
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -522,7 +535,8 @@ def bulk_phases(torch, ps, device, cfg, card, clock, tmp):
           f"{len(preds)} keyframes fused into {'x'.join(map(str, live.volume.vol_dim))} voxels, "
           f"mesh written ({os.path.getsize(mesh_path)} bytes), forward launches {fwd}, peak "
           f"memory {peak:.1f} MiB ({lap(clock):.1f} s)", flush=True)
-    return {"kf_per_s": {k: v["kf_per_s"] for k, v in runs.items()},
+    return {"jobs": jobs, "assets": assets, "cache": cache, "keyframes": keyframes,
+            "kf_per_s": {k: v["kf_per_s"] for k, v in runs.items()},
             "launches": runs[f"pairnet batched B={BULK_BATCH}"]["fwd"],
             "tsdf_frame_ms": float(np.median(frame_ms)), "tsdf_step_ms": step_ms,
             "tsdf_voxels": n_vox, "marching_cubes_s": mc_s}
@@ -761,6 +775,217 @@ def real_data_phase(torch, ps, device, cfg, card, clock, tmp, corpus):
     return {"jpeg_decode_ms": decode_ms, "export_s_per_frame": export_s,
             "frames_differing": len(differ), "keyframes": keyframes, "depth_gaps": gaps,
             "seconds": seconds, "fwd": ps.launch_count, "bwd": ps.backward_launch_count}
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """``obj.name`` replaced by ``value`` within the block (a planted fault)."""
+    real = obj.__dict__[name]
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def reassigned_state(engine, state, new):
+    """The stale-state fault: the new recurrent state bound to the engine's
+    attributes instead of written into the state buffers."""
+    engine.carry, engine.prev_pose, engine.prev_depth, engine.has_prev = new
+
+
+def bound_carry(engine, name):
+    """The LSTM carry (h, c) that the next replay of step ``name`` reads, as
+    host arrays."""
+    step = next(g for k, g in engine.step_graphs.items() if k[0] == name)
+    return [t.cpu().numpy() for t in step.args["state"][0]]
+
+
+def graphs_online_phase(torch, ps, device, cfg, card, clock, stream):
+    """[graphs] online: the 40-frame stream through the graphed and the eager
+    engine, fusionnet and pairnet; returns the numbers for the JSON line."""
+    from dvmvs_tpu_torch.apps.engine import InferenceEngine
+    from dvmvs_tpu_torch.apps.profile_step import (STEP_RANGE, api_calls, launches_per_call,
+                                                   ranged, trace_events)
+    from dvmvs_tpu_torch.apps.run_testing_online import predict_stream
+    from dvmvs_tpu_torch.utils.results import InferenceTimer
+
+    frames, poses, K = stream
+
+    def run(engine, graphed_cvs=None, timer=None):
+        """(depths, the kept features as host arrays, cost volumes or None)."""
+        kept, real = [], engine.encode_and_predict
+
+        def keep(*args):
+            depth, half = real(*args)
+            kept.append(half)
+            return depth, half
+
+        engine.encode_and_predict = keep
+        try:
+            if graphed_cvs is None:
+                return (predict_stream(engine, frames, poses, K, cfg, timer=timer)[0],
+                        [k.cpu().numpy() for k in kept], None)
+            with engine.recording_cost_volumes(graphed=graphed_cvs) as cvs:
+                depths = predict_stream(engine, frames, poses, K, cfg)[0]
+            return depths, [k.cpu().numpy() for k in kept], cvs
+        finally:
+            del engine.encode_and_predict
+
+    report = {}
+    for kind in ("fusionnet", "pairnet"):
+        engines, first, peak = {}, {}, {}
+        for mode in ("eager", "graphs"):  # the eager engine's peak alone, then the graphed one's
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            engines[mode] = InferenceEngine(kind, cfg, device=device, seed=0,
+                                            graphs=mode == "graphs")
+            first[mode] = run(engines[mode])  # the graphed engine captures its steps here
+            torch.cuda.synchronize()
+            peak[mode] = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+        eager, graphed = engines["eager"], engines["graphs"]
+        ps.launch_count = ps.backward_launch_count = 0
+        again = run(graphed)
+        launches = ps.launch_count
+        n = len(again[0])
+        depth_gap = max(float(np.max(np.abs(a - b) / b)) for a, b in zip(
+            first["graphs"][0] + again[0], first["eager"][0] * 2))
+        feature_gap = max_gap(first["graphs"][1] + again[1], first["eager"][1] * 2)
+        bit_equal = depth_gap == 0.0 and feature_gap == 0.0
+        cv = cv_gap(run(graphed, graphed_cvs=True)[2], run(eager, graphed_cvs=False)[2])
+        timers = {mode: InferenceTimer(n_skip=0) for mode in engines}
+        for _ in range(2):
+            for mode, engine in engines.items():
+                run(engine, timer=timers[mode])
+        ms = {mode: (float(np.median(t.times)), float(np.percentile(t.times, 90)))
+              for mode, t in timers.items()}
+        ranged(graphed, ("encode_and_predict",))
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            predict_stream(graphed, frames, poses, K, cfg)
+            torch.cuda.synchronize()
+        del graphed.encode_and_predict
+        calls = api_calls(trace_events(prof), STEP_RANGE)
+        per_kf = launches_per_call(calls)
+        print(f"[graphs] {kind} online, {n} keyframes of {N_FRAMES} frames: graphed against "
+              f"eager depth gap {depth_gap:.3e} (tol {REF_RTOL:g}), kept features gap "
+              f"{feature_gap:.3e}, {'bit-equal' if bit_equal else 'NOT bit-equal'}; cost volumes "
+              f"{cv:.3e} (tol {CV_RTOL:g}); forward launches after the capture {launches} for "
+              f"{n} keyframes; encode_and_predict median / p90 graphs {ms['graphs'][0]:.3f} / "
+              f"{ms['graphs'][1]:.3f} ms, eager {ms['eager'][0]:.3f} / {ms['eager'][1]:.3f} ms; "
+              f"host calls a keyframe inside encode_and_predict (profiler, "
+              f"{calls['ranges']} steps): {calls['calls']}; peak memory of the first pass "
+              f"graphs {peak['graphs']:.1f} MiB, eager {peak['eager']:.1f} MiB; "
+              f"{len(graphed.step_graphs)} captured steps ({lap(clock):.1f} s) | {card}",
+              flush=True)
+        if not (depth_gap <= REF_RTOL and feature_gap <= REF_RTOL * np.abs(
+                np.concatenate([f.ravel() for f in first["eager"][1]])).max() and cv <= CV_RTOL):
+            raise AssertionError(f"{kind}: the graph path disagrees with the eager path")
+        if launches != n or ps.backward_launch_count:
+            raise AssertionError(f"{kind}: {launches} forward launches counted for {n} replays")
+        if calls["ranges"] != n or per_kf["cudaGraphLaunch"] != 1.0 \
+                or per_kf["cudaLaunchKernel"] != 0.0:
+            raise AssertionError(f"{kind}: encode_and_predict is not one graph launch and "
+                                 f"copies: {calls}")
+        report[kind] = {"depth_gap": depth_gap, "feature_gap": feature_gap, "cv_gap": cv,
+                        "launches": launches, "ms": ms, "peak_mib": peak,
+                        "host_launches_per_keyframe": per_kf}
+        if kind == "fusionnet":
+            eager_cvs = run(eager, graphed_cvs=False)[2]
+            eager_carry = [t.cpu().numpy() for t in eager.carry]
+            sound = cv_gap(bound_carry(graphed, "encode_and_predict"), eager_carry)
+            with patched(InferenceEngine, "_copy_out", lambda self, t: t):
+                aliased = cv_gap(run(InferenceEngine(kind, cfg, device=device, seed=0),
+                                     graphed_cvs=True)[2], eager_cvs)
+            with patched(InferenceEngine, "_write_state", reassigned_state):
+                stale_engine = InferenceEngine(kind, cfg, device=device, seed=0)
+                stale_depths = run(stale_engine)[0]
+            stale = cv_gap(bound_carry(stale_engine, "encode_and_predict"), eager_carry)
+            stale_depth = max(float(np.max(np.abs(a - b) / b))
+                              for a, b in zip(stale_depths, first["eager"][0]))
+            print(f"[graphs] planted faults, fusionnet online: kept features aliasing the "
+                  f"output buffer: cost volume gap {aliased:.3e}; state reassigned instead of "
+                  f"written in place: gap of the carry the next replay reads {stale:.3e} (sound "
+                  f"{sound:.3e}), depth gap {stale_depth:.3e}; each fault must exceed "
+                  f"{CV_BF16_RTOL:g} ({lap(clock):.1f} s)", flush=True)
+            if not (sound == 0.0 and aliased > CV_BF16_RTOL and stale > CV_BF16_RTOL):
+                raise AssertionError("a planted fault of the graph path was not caught")
+            report["faults"] = {"aliased_cv_gap": aliased, "stale_carry_gap": stale,
+                                "stale_depth_gap": stale_depth}
+    return report
+
+
+def graphs_bulk_phase(torch, ps, device, cfg, card, clock, bulk):
+    """[graphs] bulk: run_testing's chunks of BULK_SCAN through graphs
+    against the eager engines; returns the numbers for the JSON line."""
+    from dvmvs_tpu_torch.apps import run_testing as rt
+    from dvmvs_tpu_torch.apps.engine import InferenceEngine
+
+    jobs, assets, cache, keyframes = (bulk[k] for k in ("jobs", "assets", "cache", "keyframes"))
+    eager = {kind: InferenceEngine(kind, cfg, device=device, seed=0, graphs=False)
+             for kind in ("pairnet", "fusionnet")}
+    graphed = {kind: InferenceEngine(kind, cfg, device=device, seed=0)
+               for kind in ("pairnet", "fusionnet")}
+
+    def chunked(kind, engine, dtype, scenes=None):
+        if kind == "pairnet":
+            return lambda: [d for (f, i), a in list(zip(jobs, assets))[:scenes]
+                            for d in rt.evaluate_scene_batched(
+                                engine, f, i, cfg, BULK_BATCH, evaluate=False, assets=a,
+                                scan_chunk=BULK_SCAN, bank_dtype=dtype)[0]]
+        return lambda: [d for p, _ in rt.evaluate_scenes_batched_fusion(
+            engine, jobs, cfg, evaluate=False, asset_cache=cache, scan_chunk=BULK_SCAN,
+            bank_dtype=dtype) for d in p]
+
+    def recorded(engine, fn, graphed_cvs):
+        with engine.recording_cost_volumes(graphed=graphed_cvs) as calls:
+            fn()
+        return [r for c in calls for r in c]
+
+    steps = {"pairnet": sum(sum(rt._scan_schedule(-(-k // BULK_BATCH), BULK_SCAN))
+                            for k in keyframes),
+             "fusionnet": sum(rt._scan_schedule(max(keyframes), BULK_SCAN))}
+    report = {}
+    for kind in ("pairnet", "fusionnet"):
+        seq = [d for (f, i), a in zip(jobs, assets) for d in rt.evaluate_scene(
+            eager[kind], f, i, cfg, evaluate=False, assets=a)[0]]
+        want_cv = recorded(eager[kind], chunked(kind, eager[kind], "f32", 1), False)
+        for dtype, tol, cv_tol in (("f32", BULK_ATOL, CV_RTOL), ("bf16", BF16_ATOL, CV_BF16_RTOL)):
+            fn = chunked(kind, graphed[kind], dtype)
+            fn()  # captures (and drops the graphs of another bank)
+            depths, seconds, peak, fwd, bwd = timed_run(torch, ps, fn)
+            gap = max_gap(depths, seq)
+            cv = cv_gap(recorded(graphed[kind], chunked(kind, graphed[kind], dtype, 1), True),
+                        want_cv)
+            name = f"{kind} {'batched B=%d' % BULK_BATCH if kind == 'pairnet' else 'lockstep'} " \
+                   f"chunk {BULK_SCAN} {dtype} bank, graphs"
+            print(f"[graphs] {name}: {len(depths)} keyframes in {seconds:.3f} s "
+                  f"({len(depths) / seconds:.1f} keyframes/s), peak memory {peak:.1f} MiB, "
+                  f"forward launches {fwd} (one a step of the chunks: {steps[kind]}), max |depth "
+                  f"- eager sequential| {gap:.3e} m (tol {tol:g}), cost volumes against the eager "
+                  f"chunks {cv:.3e} (tol {cv_tol:g}) ({lap(clock):.1f} s) | {card}", flush=True)
+            if not (gap <= tol and cv <= cv_tol and fwd == steps[kind] and bwd == 0):
+                raise AssertionError(f"{name}: the graph path disagrees with the eager path")
+            report[f"{kind}_{dtype}"] = {"kf_per_s": len(depths) / seconds, "peak_mib": peak,
+                                         "launches": fwd, "depth_gap": gap, "cv_gap": cv}
+
+    # the lockstep chunks with the state reassigned: the carry the next
+    # replay reads stays the one the first chunk was given
+    sound_fn = chunked("fusionnet", graphed["fusionnet"], "f32")
+    sound_fn()
+    sound = bound_carry(graphed["fusionnet"], "fusion_steps")
+    with patched(InferenceEngine, "_write_state", reassigned_state):
+        stale_engine = InferenceEngine("fusionnet", cfg, device=device, seed=0)
+        chunked("fusionnet", stale_engine, "f32")()
+    stale = cv_gap(bound_carry(stale_engine, "fusion_steps"), sound)
+    print(f"[graphs] planted fault, lockstep chunk {BULK_SCAN}: state reassigned instead of "
+          f"written in place: gap of the carry the next replay reads {stale:.3e} (must exceed "
+          f"{CV_BF16_RTOL:g}; {lap(clock):.1f} s)", flush=True)
+    if not stale > CV_BF16_RTOL:
+        raise AssertionError("the stale lockstep state was not caught")
+    report["stale_lockstep_carry_gap"] = stale
+    return report
 
 
 def timed_run(torch, ps, fn):
@@ -1319,6 +1544,11 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         bulk = bulk_phases(torch, ps, device, cfg, card, clock, tmp)
         parallel_bulk_phase(ps, tmp, card, clock)
+        # 12c. [graphs] every serving step as one CUDA graph replay, online
+        # and in bulk chunks, against the eager path, with planted faults
+        graphs = {"online": graphs_online_phase(torch, ps, device, cfg, card, clock,
+                                                (frames, poses, K)),
+                  "bulk": graphs_bulk_phase(torch, ps, device, cfg, card, clock, bulk)}
 
     # 12a. [proxy] the accuracy proxy's driver at a smoke's size
     with tempfile.TemporaryDirectory() as tmp:
@@ -1365,6 +1595,10 @@ def main():
         "bound_ms_training": train_fwd_bound["bound_ms"],
         "shape_bulk": dict(zip("BVCHWP", BULK)),
         "launches_bulk": bulk["launches"],
+        "launches_graphs_online": {k: graphs["online"][k]["launches"]
+                                   for k in ("fusionnet", "pairnet")},
+        "launches_graphs_bulk": {k: v["launches"] for k, v in graphs["bulk"].items()
+                                 if isinstance(v, dict)},
         "max_abs_err_bulk": bulk_err,
         "ms_bulk": bulk_ms,
         "plain_ms_bulk": bulk_plain_ms,
@@ -1402,7 +1636,7 @@ def main():
         "single_launch_timer": SINGLE_LAUNCH_TIMER,
         "launches_parallel_step": {k: v["bwd"] for k, v in parallel.items()},
         "launches_real_data": real["bwd"],
-    }], "parallel_step_ms": {k: v["ms"] for k, v in parallel.items()},
+    }], "graphs": graphs, "parallel_step_ms": {k: v["ms"] for k, v in parallel.items()},
         "real_data": {k: v for k, v in real.items() if k not in ("fwd", "bwd")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

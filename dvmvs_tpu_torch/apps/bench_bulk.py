@@ -11,17 +11,25 @@ resized to 320x256 once before any timing, and no ground truth is read, so
 the numbers are the device path and the driver, not the PNG decode. Seeded
 random weights (the work does not depend on them), ``TestConfig``, TF32 off.
 
-Modes: pairnet sequential (``evaluate_scene``), batched B=``--batch`` with a
-readback every batch, the same with ``--chunk`` batches queued between
-readbacks, and with a bfloat16 bank; fusionnet sequential and lockstep over
-all the scenes (``evaluate_scenes_batched_fusion``) in the same three
-variants. Each mode is warmed up once on its first keyframes, then timed
+Modes, on the eager path (``InferenceEngine(graphs=False)``): pairnet
+sequential (``evaluate_scene``), batched B=``--batch`` with a readback every
+batch, the same in chunks of ``--chunk`` batches a readback, and with a
+bfloat16 bank; fusionnet sequential and lockstep over all the scenes
+(``evaluate_scenes_batched_fusion``) in the same three variants. On the
+graph path (``graphs=True``, each chunk one CUDA graph replay): pairnet
+batched and fusionnet lockstep in chunks of ``--chunk``. Each mode is warmed
+up once on its first keyframes (which captures the graphs), then timed
 ``--reps`` times; within a repetition the modes run in turn, so that drift
 of the host touches all of them alike. Per mode it prints the median
 keyframes/s with the minimum, maximum and spread ((max - min) / median),
-the peak device memory, the forward kernel's launches per run and the
-largest relative depth difference to the sequential run; then the card's
-``name, power.limit`` and, with ``--json``, writes it all there.
+the peak device memory (every engine of the bench resident) beside what
+was held at the run's start (the engines' weights, retained banks and
+graphs), the forward
+kernel's launches per run, the host's CUDA API launches a keyframe
+(``cudaGraphLaunch``, kernel launches and copies, from a ``torch.profiler``
+run over the warm-up keyframes) and the largest relative depth difference
+to the sequential run; then the card's ``name, power.limit`` and, with
+``--json``, writes it all there.
 
 Run on the card from the repo root: ``python -m
 dvmvs_tpu_torch.apps.bench_bulk [--reps 5] [--json
@@ -42,6 +50,7 @@ import torch
 
 from dvmvs_tpu_torch.apps import run_testing as rt
 from dvmvs_tpu_torch.apps.engine import InferenceEngine
+from dvmvs_tpu_torch.apps.profile_step import KERNEL_LAUNCH_APIS
 from dvmvs_tpu_torch.apps.simulate_keyframe_buffer import simulate_dataset
 from dvmvs_tpu_torch.config import TestConfig
 from dvmvs_tpu_torch.data.scene_folders import write_scene_folders
@@ -60,25 +69,30 @@ def make_scenes(root: str, n_scenes: int, n_frames: int, step: float, workers: i
             for f in folders]
 
 
-def modes(pair, fusion, jobs, assets, cfg, batch: int, chunk: int):
+def modes(pair, fusion, jobs, assets, cfg, batch: int, chunk: int, graphed=None):
     """name -> fn(max_frames) returning the depth maps of every scene in
-    order."""
+    order; ``graphed``: the (pairnet, fusionnet) engines of the graph
+    modes."""
     cache = {os.path.abspath(f): a for (f, _), a in zip(jobs, assets)}
 
     def per_scene(fn):
         return lambda m: [d for (f, i), a in zip(jobs, assets) for d in fn(f, i, a, m)]
 
-    def batched(scan, dtype):
+    def batched(scan, dtype, engine=pair):
         return per_scene(lambda f, i, a, m: rt.evaluate_scene_batched(
-            pair, f, i, cfg, batch, evaluate=False, max_frames=m, assets=a, scan_chunk=scan,
+            engine, f, i, cfg, batch, evaluate=False, max_frames=m, assets=a, scan_chunk=scan,
             bank_dtype=dtype)[0])
 
-    def lockstep(scan, dtype):
+    def lockstep(scan, dtype, engine=fusion):
         return lambda m: [d for p, _ in rt.evaluate_scenes_batched_fusion(
-            fusion, jobs, cfg, evaluate=False, max_frames=m, asset_cache=cache, scan_chunk=scan,
+            engine, jobs, cfg, evaluate=False, max_frames=m, asset_cache=cache, scan_chunk=scan,
             bank_dtype=dtype) for d in p]
 
     n = len(jobs)
+    graph_modes = {} if graphed is None else {
+        f"pairnet batched B={batch} chunk {chunk} graphs": batched(chunk, "f32", graphed[0]),
+        f"fusionnet lockstep x{n} chunk {chunk} graphs": lockstep(chunk, "f32", graphed[1]),
+    }
     return {
         "pairnet sequential": per_scene(lambda f, i, a, m: rt.evaluate_scene(
             pair, f, i, cfg, evaluate=False, max_frames=m, assets=a)[0]),
@@ -90,23 +104,41 @@ def modes(pair, fusion, jobs, assets, cfg, batch: int, chunk: int):
         f"fusionnet lockstep x{n}": lockstep(0, "f32"),
         f"fusionnet lockstep x{n} chunk {chunk}": lockstep(chunk, "f32"),
         f"fusionnet lockstep x{n} bf16 bank": lockstep(0, "bf16"),
-    }
+    } | graph_modes
+
+
+def host_launches(fn) -> dict:
+    """Host CUDA API calls of ``fn()`` from a ``torch.profiler`` run: graph
+    launches, kernel launches (runtime and driver) and copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()}
+    return {"cudaGraphLaunch": counts.get("cudaGraphLaunch", 0),
+            "cudaLaunchKernel": sum(counts.get(k, 0) for k in KERNEL_LAUNCH_APIS),
+            "memcpy": sum(v for k, v in counts.items()
+                          if k.startswith(("cudaMemcpy", "cuMemcpy")))}
 
 
 def timed(fn, cuda: bool):
     """fn() with the forward launch count set to 0 just before: (result,
-    seconds to the last readback, peak MiB (0 off the card), forward
-    launches)."""
+    seconds to the last readback, peak MiB, MiB held at the start: every
+    engine's weights, retained bank and graphs (both 0 off the card),
+    forward launches)."""
+    held = 0.0
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 20
     plane_sweep.launch_count = 0
     t0 = time.perf_counter()
     out = fn()
     if cuda:
         torch.cuda.synchronize()
     return (out, time.perf_counter() - t0,
-            torch.cuda.max_memory_allocated() / 2 ** 20 if cuda else 0.0,
+            torch.cuda.max_memory_allocated() / 2 ** 20 if cuda else 0.0, held,
             plane_sweep.launch_count)
 
 
@@ -134,8 +166,10 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = TestConfig(**{k: v for k, v in (("image_width", args.width),
                                           ("image_height", args.height)) if v is not None})
-    pair = InferenceEngine("pairnet", cfg, device=args.device, seed=0)
-    fusion = InferenceEngine("fusionnet", cfg, device=args.device, seed=0)
+    pair, fusion = (InferenceEngine(kind, cfg, device=args.device, seed=0, graphs=False)
+                    for kind in ("pairnet", "fusionnet"))
+    graphed = tuple(InferenceEngine(kind, cfg, device=args.device, seed=0)
+                    for kind in ("pairnet", "fusionnet"))
     cuda = pair.device.type == "cuda"
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True,
@@ -160,20 +194,25 @@ def main(argv=None):
               f"{render_s:.1f} s; decode, crop and resize to {cfg.image_width}x"
               f"{cfg.image_height} {decode_ms:.1f} ms a frame", flush=True)
 
-        runs = modes(pair, fusion, jobs, assets, cfg, args.batch, args.chunk)
-        for fn in runs.values():
-            fn(args.warmup_frames)
-        report = {name: {"keyframes_per_s": [], "peak_mib": 0.0, "launches": None}
-                  for name in runs}
+        runs = modes(pair, fusion, jobs, assets, cfg, args.batch, args.chunk, graphed)
+        report = {name: {"keyframes_per_s": [], "peak_mib": 0.0, "held_mib": 0.0,
+                         "launches": None} for name in runs}
+        for name, fn in runs.items():
+            n_warm = len(fn(args.warmup_frames))
+            if cuda:
+                report[name]["host_launches_per_keyframe"] = {
+                    k: v / n_warm for k, v in host_launches(
+                        lambda fn=fn: fn(args.warmup_frames)).items()}
         depths = {}
         for rep in range(args.reps):
             for name, fn in runs.items():
-                out, seconds, peak, launches = timed(lambda: fn(None), cuda)
+                out, seconds, peak, held, launches = timed(lambda: fn(None), cuda)
                 if len(out) != n_kf:
                     raise AssertionError(f"{name}: {len(out)} depth maps of {n_kf}")
                 r = report[name]
                 r["keyframes_per_s"].append(n_kf / seconds)
-                r["peak_mib"] = max(r["peak_mib"], peak)
+                if peak >= r["peak_mib"]:
+                    r["peak_mib"], r["held_mib"] = peak, held
                 r["launches"] = launches
                 if rep == 0:
                     depths[name] = out
@@ -190,7 +229,9 @@ def main(argv=None):
                                  for g, w in zip(depths[name], base)))
         print(f"[bulk] {name}: {n_kf} keyframes, median {r['median']:.2f} keyframes/s (min "
               f"{r['min']:.2f}, max {r['max']:.2f}, spread {r['spread']:.1%} over {args.reps} "
-              f"runs), peak {r['peak_mib']:.1f} MiB, forward launches {r['launches']} a run, "
+              f"runs), peak {r['peak_mib']:.1f} MiB ({r['held_mib']:.1f} held at its start), "
+              f"forward launches {r['launches']} a run, "
+              f"host launches a keyframe {r.get('host_launches_per_keyframe', 'off the card')}, "
               f"max relative depth gap to sequential {r['max_rel_gap']:.3e}", flush=True)
     print(card)
     if args.json:

@@ -1,0 +1,141 @@
+"""CUDA graphs of the engine's steps: the counterpart of the JAX engine's
+jitted programs (dvmvs_tpu/apps/engine.py:57-71), where a step or a chunk
+of T steps is one compiled dispatch.
+
+A step is a body: a plain function of tensors that reads its arguments and
+the model's weights, may write the recurrent state it is given in place, and
+returns its outputs (a tensor, or tuples, lists and dicts of them).
+``StepGraph`` runs one body on arguments fixed when it is made:
+
+  - on the card it warms the body up on a side stream, captures it once into
+    a ``torch.cuda.CUDAGraph`` with a private memory pool, and from then on
+    each ``run`` is one ``cudaGraphLaunch``; the outputs are the tensors the
+    capture allocated, rewritten by every replay;
+  - on the CPU it calls the body on the same arguments and copies its
+    results into output buffers made at the first run, so the CPU has the
+    card's semantics: what persists is the in-place writes and the output
+    buffers, which the next ``run`` overwrites.
+
+The caller fills the input buffers with ``copy_`` before a run and copies
+what it keeps out of the outputs after it. What a body must keep to be
+captured: it reads nothing but its arguments and the weights (both at fixed
+addresses; ``load_state_dict`` copies weights in place, so a load after the
+capture takes effect), it never synchronises with the host (no ``.item()``,
+``.cpu()`` or data-dependent shapes), and it keeps state only by writing
+into the buffers it was given: a state reassigned instead is not seen by
+the next replay. A capture or replay that fails raises; nothing falls back
+to running the body eagerly.
+
+The plane-sweep wrappers count their launches in Python, which a replay
+does not run: the count a capture records is added back at every replay,
+and the capture's own (recorded, not launched) counts are taken away.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterator, Sequence
+
+import torch
+
+from dvmvs_tpu_torch.ops import plane_sweep
+
+# warm-up runs before a capture, on a side stream (PyTorch's graph docs):
+# they build the kernels, the cuBLAS / cuDNN handles and workspaces and the
+# convolution plans outside the capture
+WARMUP_RUNS = 2
+
+
+def leaves(tree) -> Iterator[torch.Tensor]:
+    """The tensors of a tree of tuples, lists and dicts, in order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from leaves(v)
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` on every tensor of a tree of tuples, lists and dicts; the
+    tree's shape is kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return tree
+
+
+def _launch_counts():
+    return plane_sweep.launch_count, plane_sweep.backward_launch_count
+
+
+class StepGraph:
+    """One step body on fixed arguments, captured on the card and replayed
+    (module doc).
+
+    ``args``: the body's keyword arguments (tensors or trees of them), the
+    static buffers; ``state``: the tensors among them that the body writes
+    in place, restored after the warm-up runs so that warming up does not
+    advance the recurrence; ``warmup``: runs before the capture (0 when the
+    same shapes were warmed up by an earlier capture)."""
+
+    def __init__(self, name: str, body: Callable, args: Dict, state: Sequence[torch.Tensor] = (),
+                 warmup: int = WARMUP_RUNS):
+        self.name, self.body, self.args = name, body, args
+        self.state = tuple(state)
+        self.warmup = warmup
+        self.device = next(leaves(args)).device
+        self.graph = None
+        self.outputs = None
+        self.launches = (0, 0)  # plane-sweep (forward, backward) launches inside the graph
+
+    def run(self):
+        """One step; returns the output buffers (valid until the next run)."""
+        if self.device.type != "cuda":
+            out = self.body(**self.args)
+            if self.outputs is None:
+                self.outputs = tree_map(torch.empty_like, out)
+            for dst, src in zip(leaves(self.outputs), leaves(out)):
+                dst.copy_(src)
+            return self.outputs
+        if self.graph is None:
+            self._capture()
+        try:
+            self.graph.replay()
+        except RuntimeError as err:
+            raise RuntimeError(f"replay of the CUDA graph of {self.name!r} failed") from err
+        plane_sweep.launch_count += self.launches[0]
+        plane_sweep.backward_launch_count += self.launches[1]
+        return self.outputs
+
+    def _capture(self):
+        current = torch.cuda.current_stream(self.device)
+        if self.warmup:
+            saved = [t.clone() for t in self.state]
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                for _ in range(self.warmup):
+                    self.body(**self.args)
+            current.wait_stream(side)
+            for t, s in zip(self.state, saved):
+                t.copy_(s)
+        graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        try:
+            # thread_local: a CUDA call of another thread (NCCL's watchdog,
+            # a host prefetcher) does not invalidate this thread's capture
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outputs = self.body(**self.args)
+        except RuntimeError as err:
+            raise RuntimeError(
+                f"CUDA graph capture of the engine step {self.name!r} failed; it is not run "
+                "eagerly instead (InferenceEngine(..., graphs=False) is the eager path)") from err
+        finally:
+            recorded = tuple(a - b for a, b in zip(_launch_counts(), before))
+            plane_sweep.launch_count, plane_sweep.backward_launch_count = before
+        self.graph, self.outputs, self.launches = graph, outputs, recorded

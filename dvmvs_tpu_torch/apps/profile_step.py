@@ -1,20 +1,27 @@
 """Where the time of the online step goes on one GPU.
 
 Streams a synthetic room (``SynthScene`` of data/synthetic.py, NumPy only)
-through ``predict_stream`` at the test configuration and
-reports:
+through ``predict_stream`` at the test configuration with two engines, the
+graph path (``InferenceEngine(graphs=True)``, each step one CUDA graph
+replay) and the eager path (``graphs=False``), and reports for each:
 
   - the host wall time of ``encode_and_predict`` per keyframe, median and
-    p90 over the timed passes (after warm-up passes), and the median wall
-    time of a whole pass;
+    p90 over the timed passes (after warm-up passes, the two paths' passes
+    in turns), and the median wall time of a whole pass;
+  - the peak device memory of a pass (the eager engine's, measured first,
+    alone; the graphed engine's above what the eager one holds, its
+    captures included);
   - from a ``torch.profiler`` trace of one more pass: device operations per
     keyframe, the device's busy time (union of kernel, memcpy and memset
     intervals) and its idle share of the profiled pass's wall time (the
     profiler's host overhead lengthens that pass, so the share of the
-    unprofiled passes' median wall time is given beside it), device time per
-    top-level module (each kernel counts for the module whose forward
-    launched it; "other" is the cost volume, the splat, the hidden-state
-    warp and the uploads), and device time by kernel name.
+    unprofiled passes' median wall time is given beside it), host API calls
+    a keyframe inside ``encode_and_predict`` by name (``cudaGraphLaunch``
+    and ``cudaLaunchKernel`` apart), and device time by kernel name; for
+    the eager path also device time per top-level module (each kernel
+    counts for the module whose forward launched it; "other" is the cost
+    volume, the splat, the hidden-state warp and the uploads). Module
+    hooks do not run in a replay, so the graph path has no module split.
 
 With ``--train`` it profiles the training step instead
 (``parallel/train.py::train_step``, every module trainable) at the
@@ -53,6 +60,10 @@ N_FRAMES, N_WARMUP_PASSES, N_TIMED_PASSES, N_TOP_KERNELS = 40, 2, 3, 12
 N_WARMUP_STEPS, N_TIMED_STEPS = 2, 5
 # kernel-name prefixes of csrc/plane_sweep.cu and csrc/plane_sweep_bwd.cu
 SWEEP_KERNELS = {"forward": "plane_sweep_kernel", "backward": "plane_sweep_bwd_kernel"}
+# the runtime and driver calls that launch one kernel
+KERNEL_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                      "cuLaunchKernelEx")
+STEP_RANGE = "engine.encode_and_predict"
 
 
 def synthetic_stream(cfg: TestConfig, n_frames: int):
@@ -108,6 +119,44 @@ def union_length(intervals) -> float:
             total += end - max(start, reach)
             reach = end
     return total
+
+
+def api_calls(events, range_name: str) -> dict:
+    """Host CUDA API calls (runtime and driver) by name inside the host
+    ranges called ``range_name``, and the number of those ranges."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and e["name"] == range_name]
+    calls = collections.Counter(
+        e["name"] for e in events
+        if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver")
+        and any(a <= e["ts"] <= b for a, b in spans))
+    return {"ranges": len(spans), "calls": dict(calls.most_common())}
+
+
+def launches_per_call(calls: dict) -> dict:
+    """``api_calls`` -> graph launches, kernel launches and copies a range."""
+    n, c = max(calls["ranges"], 1), calls["calls"]
+    kernels = sum(v for k, v in c.items() if k in KERNEL_LAUNCH_APIS)
+    copies = sum(v for k, v in c.items() if k.startswith(("cudaMemcpy", "cuMemcpy")))
+    return {"cudaGraphLaunch": c.get("cudaGraphLaunch", 0) / n,
+            "cudaLaunchKernel": kernels / n, "memcpy": copies / n}
+
+
+def ranged(obj, names, prefix: str = "engine."):
+    """Wrap the methods ``names`` of one object (the instance only) in
+    profiler ranges called ``prefix + name``."""
+    import torch
+
+    for name in names:
+        method = getattr(obj, name)
+
+        def call(*args, method=method, label=prefix + name, **kwargs):
+            with torch.profiler.record_function(label):
+                return method(*args, **kwargs)
+
+        setattr(obj, name, call)
+    return obj
 
 
 def summarize_trace(events, n_keyframes: int) -> dict:
@@ -183,43 +232,66 @@ def profile(model_kind: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = TestConfig()
     frames, poses, K = synthetic_stream(cfg, N_FRAMES)
-    engine = InferenceEngine(model_kind, cfg, device="cuda")
-    for _ in range(N_WARMUP_PASSES):
-        predict_stream(engine, frames, poses, K, cfg)
-    timer = InferenceTimer(n_skip=0)
-    pass_ms = []
-    for _ in range(N_TIMED_PASSES):
-        t0 = time.perf_counter()
-        predict_stream(engine, frames, poses, K, cfg, timer=timer)
-        pass_ms.append((time.perf_counter() - t0) * 1e3)
 
-    handles = _annotate_modules(engine.model)
-    try:
+    # each engine's peak, the eager one alone and the graphed one above what
+    # the eager one holds; the warm-up passes capture the graphs
+    engines, peak_mib = {}, {}
+    for mode in ("eager", "graphs"):
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                                ProfilerActivity.CUDA]) as prof:
-            with torch.profiler.record_function(WINDOW):
-                predictions, _ = predict_stream(engine, frames, poses, K, cfg)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        engines[mode] = InferenceEngine(model_kind, cfg, device="cuda",
+                                        graphs=mode == "graphs")
+        for _ in range(N_WARMUP_PASSES):
+            predict_stream(engines[mode], frames, poses, K, cfg)
+        torch.cuda.synchronize()
+        peak_mib[mode] = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+
+    timers = {mode: InferenceTimer(n_skip=0) for mode in engines}
+    pass_ms = {mode: [] for mode in engines}
+    for _ in range(N_TIMED_PASSES):
+        for mode, engine in engines.items():
+            t0 = time.perf_counter()
+            predict_stream(engine, frames, poses, K, cfg, timer=timers[mode])
+            pass_ms[mode].append((time.perf_counter() - t0) * 1e3)
+
+    report = {"model": model_kind, "frames": f"{N_FRAMES} at {cfg.image_width}x"
+              f"{cfg.image_height}", "modes": {}}
+    for mode, engine in engines.items():
+        ranged(engine, ("encode_and_predict",))
+        handles = _annotate_modules(engine.model) if mode == "eager" else []
+        try:
             torch.cuda.synchronize()
-    finally:
-        for h in handles:
-            h.remove()
-    times = np.asarray(timer.times)
-    trace = summarize_trace(_trace_events(prof), len(predictions))
-    unprofiled_ms = float(np.median(pass_ms))
-    return {
-        "model": model_kind,
-        "frames": f"{N_FRAMES} at {cfg.image_width}x{cfg.image_height}",
-        "encode_and_predict_ms": {"median": float(np.median(times)),
-                                  "p90": float(np.percentile(times, 90)),
-                                  "n": int(times.size)},
-        "pass_wall_ms_unprofiled": unprofiled_ms,
-        "device_idle_share_unprofiled": 1.0 - trace["device_busy_ms"] / unprofiled_ms,
-        **trace,
-    }
+            with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA]) as prof:
+                with torch.profiler.record_function(WINDOW):
+                    predictions, _ = predict_stream(engine, frames, poses, K, cfg)
+                torch.cuda.synchronize()
+        finally:
+            for h in handles:
+                h.remove()
+        events = trace_events(prof)
+        trace = summarize_trace(events, len(predictions))
+        if mode == "graphs":
+            del trace["device_ms_per_keyframe_by_module"]
+        calls = api_calls(events, STEP_RANGE)
+        times = np.asarray(timers[mode].times)
+        unprofiled_ms = float(np.median(pass_ms[mode]))
+        report["modes"][mode] = {
+            "encode_and_predict_ms": {"median": float(np.median(times)),
+                                      "p90": float(np.percentile(times, 90)),
+                                      "n": int(times.size)},
+            "pass_wall_ms_unprofiled": unprofiled_ms,
+            "device_idle_share_unprofiled": 1.0 - trace["device_busy_ms"] / unprofiled_ms,
+            "peak_memory_mib": peak_mib[mode],
+            "host_launches_per_keyframe": launches_per_call(calls),
+            "host_api_calls_in_encode_and_predict": calls,
+            **trace,
+        }
+    return report
 
 
-def _trace_events(prof) -> list:
+def trace_events(prof) -> list:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -267,7 +339,7 @@ def profile_train(model_kind: str) -> dict:
         with torch.profiler.record_function(WINDOW):
             step()
         torch.cuda.synchronize()
-    events = _trace_events(prof)
+    events = trace_events(prof)
     trace = summarize_trace(events, 1)
     sweep = kernel_ms_by_prefix(events, SWEEP_KERNELS)
     kernel_ms = sum(e["dur"] for e in events

@@ -17,10 +17,12 @@ its recurrent state on ``TRACKING LOST`` lines. Three evaluators:
     one batched recurrent step each, per-scene keep masks for resets.
 
 Both batched evaluators keep the scene's unique frames and their features
-on the device, upload every step's indices and poses once, and queue
-``scan_chunk`` steps at a time (``InferenceEngine.predict_pair_steps`` /
-``fusion_steps``) with one readback per chunk; ``scan_chunk`` 0 or 1 reads
-back every step.
+on the device, upload every step's indices and poses once, and run
+``scan_chunk`` steps at a time as one chunk (``InferenceEngine.
+predict_pair_steps`` / ``fusion_steps``): on the card one CUDA graph replay
+a chunk, the JAX driver's one ``lax.scan`` dispatch a chunk, with one
+readback each; ``scan_chunk`` 0 or 1 replays and reads back every step.
+The bank is encoded in batches by ``encode_batch``, one replay a batch.
 
 Run on the card (the default; ``--device cpu`` asks for the CPU):
 ``python -m dvmvs_tpu_torch.apps.run_testing --model pairnet --data DIR
@@ -33,7 +35,8 @@ one process a device: ``torchrun --nproc-per-node N -m
 dvmvs_tpu_torch.apps.run_testing --n-devices N ...``): each rank runs its
 rows of every pairnet batch, or its scenes of every lockstep group, and the
 results are gathered; rank 0 writes the same files as one process does.
-``--scan-chunk`` is for one device, as in the JAX driver.
+``--scan-chunk`` is for one device, as in the JAX driver, and with more
+than one device the steps run eagerly, one a readback.
 """
 
 from __future__ import annotations
@@ -193,17 +196,22 @@ def _pad_to(items: list, n: int) -> list:
 
 def _encode_bank(engine: InferenceEngine, names: Sequence, load, batch: int, dtype):
     """Encode the frames ``load(name)`` of ``names`` in batches of ``batch``
-    (the last padded) into a device-resident bank: a tuple of (N, C, h, w)
-    scales in ``dtype`` (rounded to nearest even for bfloat16), and the (N,
-    3, H, W) frames."""
-    chunks, images = [], []
-    for s in range(0, len(names), batch):
-        imgs = engine.images(np.stack([load(n) for n in _pad_to(list(names[s:s + batch]), batch)]))
-        chunks.append(tuple(f.to(dtype) for f in engine.encode_batch(imgs)))
-        images.append(imgs)
-    n = len(names)
-    bank = tuple(torch.cat([c[i] for c in chunks])[:n] for i in range(len(chunks[0])))
-    return bank, torch.cat(images)[:n]
+    (the last padded) into a device-resident bank in the engine's storage
+    (``InferenceEngine.bank_storage``): a tuple of (N, C, h, w) scales in
+    ``dtype`` (rounded to nearest even for bfloat16) and the (N, 3, H, W)
+    frames, where row i holds ``names[i]`` and the N - len(names) rows past
+    them belong to no frame of this bank."""
+    n, bank, images = len(names), None, None
+    for s in range(0, n, batch):
+        imgs = engine.images(np.stack([load(x) for x in _pad_to(list(names[s:s + batch]), batch)]))
+        feats = engine.encode_batch(imgs)
+        if bank is None:
+            bank, images = engine.bank_storage(n, dtype, feats, imgs)
+        m = min(batch, n - s)
+        for b, f in zip(bank, feats):
+            b[s:s + m].copy_(f[:m])
+        images[s:s + m].copy_(imgs[:m])
+    return bank, images
 
 
 def _views(names: Sequence[str], V: int):
@@ -247,8 +255,9 @@ def evaluate_scene_batched(engine: InferenceEngine, scene_folder: str, index_fil
     bank (``bank_dtype`` bf16 halves its memory and is cast to float32
     where it is read); the frames stay on the device too, and each batch
     reads its rows with ``index_select``. The last batch is padded by
-    repeating its last entry. ``scan_chunk`` batches are queued at a time
-    with one readback each (``InferenceEngine.predict_pair_steps``).
+    repeating its last entry. ``scan_chunk`` batches run as one chunk (one
+    graph replay on the card) with one readback each
+    (``InferenceEngine.predict_pair_steps``).
 
     ``assets``: a prebuilt SceneAssets, so repeated runs over one scene skip
     the host decode and resize. With a data-parallel ``group`` every rank
@@ -330,8 +339,9 @@ def evaluate_scenes_batched_fusion(engine: InferenceEngine, jobs, cfg: TestConfi
     replays a live scene so the lockstep stays well-formed; steps past a
     scene's end replay its last entry, and their outputs are dropped.
     ``asset_cache``: SceneAssets by absolute scene path, reused and filled.
-    Frames and bank stay on the device; ``scan_chunk`` steps are queued at a
-    time with one readback each (``InferenceEngine.fusion_steps``)."""
+    Frames and bank stay on the device; ``scan_chunk`` steps run as one
+    chunk (one graph replay on the card) with one readback each
+    (``InferenceEngine.fusion_steps``)."""
     if engine.kind != "fusionnet":
         raise ValueError("scene-batched evaluation needs the recurrent model (fusionnet)")
     dtype = _check_dtype(bank_dtype)
@@ -443,8 +453,8 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--scene-batch", type=int, default=None,
                     help="fusionnet throughput mode: this many scenes in lockstep")
     ap.add_argument("--scan-chunk", type=int, default=0,
-                    help="with --batch-size/--scene-batch: steps queued between readbacks "
-                         "(0 or 1: a readback every step)")
+                    help="with --batch-size/--scene-batch: steps run as one chunk (one CUDA "
+                         "graph replay on the card) between readbacks (0 or 1: every step)")
     ap.add_argument("--bank-dtype", choices=sorted(BANK_DTYPES), default="bf16",
                     help="storage dtype of the device feature bank of the batched modes "
                          "(bf16 halves its memory; read back as float32)")
@@ -493,7 +503,8 @@ def main(argv: Optional[Sequence[str]] = None):
 
 def _evaluate(args, cfg: TestConfig, device, group):
     lead = mesh.rank(group) == 0
-    engine = InferenceEngine(args.model, cfg, device=device)
+    engine = InferenceEngine(args.model, cfg, device=device,
+                             graphs=mesh.world_size(group) == 1)
     if args.checkpoint:
         load_checkpoint(args.checkpoint, engine.model)
 

@@ -423,7 +423,7 @@ def test_bench_bulk_runs_every_mode_on_the_cpu(monkeypatch, tmp_path):
         ["--device", "cpu", "--scenes", "2", "--frames", "6", "--reps", "1", "--workers", "2",
          "--width", "96", "--height", "64", "--warmup-frames", "1", "--batch", "4", "--chunk",
          "2", "--json", str(tmp_path / "bench.json")])
-    assert len(report) == 8 and (tmp_path / "bench.json").is_file()
+    assert len(report) == 10 and (tmp_path / "bench.json").is_file()  # 8 eager, 2 graphed
     for name, r in report.items():
         assert r["median"] > 0 and r["launches"] == 0, name
         assert r["max_rel_gap"] <= RTOL, name

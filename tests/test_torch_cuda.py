@@ -20,6 +20,7 @@ from scipy.spatial.transform import Rotation
 
 import chip_smoke as cs
 from dvmvs_tpu_torch import config
+from dvmvs_tpu_torch.apps.graphs import WARMUP_RUNS
 from dvmvs_tpu_torch.ops import plane_sweep as tps
 from dvmvs_tpu_torch.ops.cost_volume import inverse_depth_planes
 
@@ -150,7 +151,9 @@ def test_kernel_rejects_cpu_mix(cuda_device):
 @pytest.mark.parametrize("kind", ["fusionnet", "pairnet"])
 def test_engine_streams_through_kernel(cuda_device, kind):
     """A short stream on the card launches the kernel once per keyframe and
-    gives the CPU engine's depths (same seeded weights, TF32 off)."""
+    gives the CPU engine's depths (same seeded weights, TF32 off). The first
+    stream also captures the step graph, whose warm-up runs launch it too;
+    after that each replay counts its one launch."""
     from dvmvs_tpu_torch.apps.engine import InferenceEngine
     from dvmvs_tpu_torch.apps.run_testing_online import predict_stream
 
@@ -168,7 +171,12 @@ def test_engine_streams_through_kernel(cuda_device, kind):
     before = tps.launch_count
     predictions, indices = predict_stream(engine, frames, poses, K, cfg)
     assert indices == [1, 2, 3, 4, 5]
+    assert tps.launch_count - before == len(predictions) + WARMUP_RUNS
+    before = tps.launch_count
+    again, _ = predict_stream(engine, frames, poses, K, cfg)
     assert tps.launch_count - before == len(predictions)
+    for p, q in zip(predictions, again):
+        np.testing.assert_array_equal(p, q)
     want, _ = predict_stream(InferenceEngine(kind, cfg, device="cpu", seed=4), frames, poses, K,
                              cfg)
     for p, w in zip(predictions, want):
@@ -180,30 +188,31 @@ def test_engine_streams_through_kernel(cuda_device, kind):
 @pytest.mark.parametrize("kind", ["fusionnet", "pairnet"])
 def test_engine_step_queues_without_host_sync(cuda_device, kind):
     """Everything up to the depth readback (uploads, features, splat, cost
-    volume, network) is queued without a host synchronisation."""
+    volume, network) is queued without a host synchronisation, on the graph
+    path (captured by the first step) and on the eager path."""
     from dvmvs_tpu_torch.apps.engine import InferenceEngine
 
     cfg = config.TestConfig(image_width=96, image_height=64,
                             depth=config.DepthConfig(0.25, 20.0, 16))
-    engine = InferenceEngine(kind, cfg, device=cuda_device)
     rs = np.random.RandomState(5)
     frames = [rs.randn(64, 96, 3).astype(np.float32) for _ in range(3)]
     poses = [np.eye(4) for _ in range(3)]
     for i, pose in enumerate(poses):
         pose[0, 3] = 0.12 * i
     K = np.array([[70.0, 0, 48], [0, 70.0, 32], [0, 0, 1]], np.float32)
-    f0 = engine.encode(frames[0])[0]
-    engine.encode_and_predict(frames[1], [f0], poses[1], [poses[0]], K)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        with torch.inference_mode():
-            image = engine._image(frames[2])
-            depth = engine._predict(image, engine.model.extract_features(image), [f0],
-                                    poses[2], [poses[0]], K)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    assert depth.shape == (1, 64, 96) and torch.isfinite(depth).all()
+    for graphs in (True, False):
+        engine = InferenceEngine(kind, cfg, device=cuda_device, graphs=graphs)
+        f0 = engine.encode(frames[0])[0]
+        engine.encode_and_predict(frames[1], [f0], poses[1], [poses[0]], K)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.inference_mode():
+                depth, half = engine._encode_predict(frames[2], [f0], poses[2], [poses[0]], K)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert depth.shape == (1, 64, 96) and torch.isfinite(depth).all()
+        assert half.shape == f0.shape
 
 
 # --- the backward kernel (csrc/plane_sweep_bwd.cu) and the training path ---
@@ -340,11 +349,19 @@ def _bulk_inputs(engine, rs, T, B, n_images):
     return bank, images, K, xs
 
 
+def run_bulk_steps(engine, kind, bank, images, K, xs):
+    if kind == "pairnet":
+        return engine.predict_pair_steps(bank, images, K, xs)
+    return engine.fusion_steps(bank, images, K, engine.init_batch_state(4), xs)[1]
+
+
 @pytest.mark.parametrize("kind", ["pairnet", "fusionnet"])
 def test_bulk_steps_on_the_card_match_the_cpu(cuda_device, kind):
     """T=3 device-resident steps of B=4 (index_select from the bank, keep
     masks for fusionnet) on the card, queued without a host sync, against
-    the same steps on the CPU (same seeded weights, TF32 off)."""
+    the same steps on the CPU (same seeded weights, TF32 off). The card
+    runs the chunk as one graph replay, after a first call that captures it:
+    the replay adds the three launches it holds."""
     from dvmvs_tpu_torch.apps.engine import InferenceEngine
 
     cfg = config.TestConfig(image_width=96, image_height=64,
@@ -353,15 +370,14 @@ def test_bulk_steps_on_the_card_match_the_cpu(cuda_device, kind):
     for device in ("cpu", cuda_device):
         engine = InferenceEngine(kind, cfg, device=device, seed=6)
         bank, images, K, xs = _bulk_inputs(engine, np.random.RandomState(7), 3, 4, 6)
-        torch.cuda.synchronize()
+        if device != "cpu":  # the first call captures
+            run_bulk_steps(engine, kind, bank, images, K, xs)
+            torch.cuda.synchronize()
         before = tps.launch_count
         if device != "cpu":
             torch.cuda.set_sync_debug_mode("error")
         try:
-            if kind == "pairnet":
-                depth = engine.predict_pair_steps(bank, images, K, xs)
-            else:
-                _, depth = engine.fusion_steps(bank, images, K, engine.init_batch_state(4), xs)
+            depth = run_bulk_steps(engine, kind, bank, images, K, xs)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         out[str(device)] = depth.cpu().numpy()

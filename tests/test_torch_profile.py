@@ -6,9 +6,13 @@ import numpy as np
 import pytest
 
 from dvmvs_tpu_torch.apps.profile_step import (
+    STEP_RANGE,
     SWEEP_KERNELS,
     WINDOW,
+    api_calls,
     kernel_ms_by_prefix,
+    launches_per_call,
+    ranged,
     summarize_trace,
     synthetic_train_batch,
     union_length,
@@ -91,3 +95,36 @@ def test_summarize_trace_refuses_a_trace_without_device_kernels():
               _span("cpu_op", "aten::conv2d", 10, 20)]
     with pytest.raises(RuntimeError, match="no device kernels"):
         summarize_trace(events, n_keyframes=1)
+
+
+def test_api_calls_count_launches_inside_the_step_ranges():
+    """Graph launches, kernel launches (runtime and driver) and copies inside
+    the encode_and_predict ranges, a range; calls outside them are left out."""
+    events = [
+        _span("user_annotation", STEP_RANGE, 0, 10),
+        _span("user_annotation", STEP_RANGE, 20, 10),
+        _span("cuda_runtime", "cudaMemcpyAsync", 1, 1),
+        _span("cuda_runtime", "cudaGraphLaunch", 2, 1),
+        _span("cuda_runtime", "cudaMemcpyAsync", 3, 1),
+        _span("cuda_runtime", "cudaGraphLaunch", 22, 1),
+        _span("cuda_driver", "cuLaunchKernel", 23, 1),
+        _span("cuda_runtime", "cudaMemcpyAsync", 24, 1),
+        _span("cuda_runtime", "cudaLaunchKernel", 15, 1),  # between the steps
+        _span("cpu_op", "aten::copy_", 3, 1),
+    ]
+    calls = api_calls(events, STEP_RANGE)
+    assert calls == {"ranges": 2, "calls": {"cudaMemcpyAsync": 3, "cudaGraphLaunch": 2,
+                                            "cuLaunchKernel": 1}}
+    assert launches_per_call(calls) == {"cudaGraphLaunch": 1.0, "cudaLaunchKernel": 0.5,
+                                        "memcpy": 1.5}
+
+
+def test_ranged_wraps_one_instance_only():
+    class Engine:
+        def step(self, x, scale=1):
+            return x * scale
+
+    engine, other = Engine(), Engine()
+    ranged(engine, ("step",))
+    assert engine.step(2, scale=3) == 6 and "step" in vars(engine)
+    assert "step" not in vars(other)
