@@ -36,9 +36,16 @@ backward, one nvcc each, in parallel) and drives both paths of the port:
   - baselines: the forward kernel in L1 mode at MVDepthNet's and GP-MVS's
     shape (normalised RGB, C=3, at 256x320, planes at 0.5-50 m) against its
     plain version and timed beside its bound, then MVDepthNet, GP-MVS,
-    DPSNet and DELTAS through ``run_testing_baseline.evaluate_scene_baseline``
-    over one 640x480 synthetic scene and its index file (ms a keyframe, peak
-    memory, launches), each held against the same code on the CPU;
+    DPSNet and DELTAS (their ``predict`` as CUDA graph replays, the default)
+    through ``run_testing_baseline.evaluate_scene_baseline`` over one 640x480
+    synthetic scene and its index file (ms a keyframe, peak memory,
+    launches), each held against the same code on the CPU; then
+    [baseline-graphs]: each baseline graphed and eager in turns over those
+    keyframes, the depths bit for bit (at most BASELINE_RTOL; DELTAS on its
+    depth before the clip), one ``cudaGraphLaunch`` a ``predict`` (two for
+    GP-MVS around its host Kalman step and for DELTAS around its SVD, whose
+    kernel launches are the only ones outside the graphs), the forward
+    kernel once a keyframe inside the U-Nets' graphs;
   - data parallel over NCCL at world size 1 (``parallel/mesh.py``):
     ``dryrun_multichip(1)``, one pairnet (B=14) and one fusionnet (B=4,
     S=8) step at 256x256 through the data-parallel path against the plain
@@ -157,6 +164,12 @@ BASELINE_SWEEP, BASELINE_DEPTHS = (1, 2, 3, 256, 320, 64), (0.5, 50.0)
 BASELINE_SCENE, BASELINE_KEYFRAMES = (11, 32), 8
 BASELINE_REF = {"mvdepthnet": 3, "gpmvs": 3, "dpsnet": 1, "deltas": 1}
 BASELINE_RTOL = 1e-5
+# [baseline-graphs]: graph launches a predict (GP-MVS: encoder and decoder
+# around its host Kalman step; DELTAS: detection to the DLT systems, and the
+# densifier, around the SVD, which cannot be captured) and the passes of each
+# path, in turns, over the [baselines] keyframes
+BASELINE_GRAPHS = {"mvdepthnet": 1, "gpmvs": 2, "dpsnet": 1, "deltas": 2}
+BASELINE_ROUNDS = 2
 
 # [parallel]: pairnet's training batch; rounds of steps timed in turns
 PAIR_BATCH, PARALLEL_ROUNDS, PARALLEL_STEPS = 14, 3, 3
@@ -567,13 +580,16 @@ def baseline_phases(torch, ps, device, card, clock, tmp):
 
     out = {}
     for name in ("mvdepthnet", "gpmvs", "dpsnet", "deltas"):
-        est = BASELINE_REGISTRY[name](device=device, seed=0)
-        run(est, 2)  # warm-up
+        est = BASELINE_REGISTRY[name](device=device, seed=0)  # graphed, the default
+        run(est, 2)  # warm-up; captures the graphs
         timer = InferenceTimer(n_skip=1)
-        # the weights and what earlier phases still hold
+        # the weights, the graphs and what earlier phases still hold
         held = torch.cuda.memory_allocated() / 2 ** 20
+        seen = []  # each keyframe's predict arguments, for [baseline-graphs]
+        est.predict = lambda *a, real=est.predict: (seen.append(a), real(*a))[1]
         preds, _, peak, fwd, bwd = timed_run(torch, ps, lambda: run(est, BASELINE_KEYFRAMES,
                                                                     timer))
+        del est.predict
         want_fwd = len(preds) if name in ("mvdepthnet", "gpmvs") else 0
         if len(preds) != BASELINE_KEYFRAMES or not all(
                 p.shape == (est.image_height, est.image_width) and np.isfinite(p).all()
@@ -587,10 +603,6 @@ def baseline_phases(torch, ps, device, card, clock, tmp):
         if name == "deltas":
             # the first keyframe's inputs; the dense stages held with the
             # CPU's keypoints, the card's own top-k compared with the CPU's
-            seen = []
-            est.predict = lambda *a, real=est.predict: (seen.append(a), real(*a))[1]
-            run(est, 1)
-            del est.predict
             with torch.inference_mode():
                 want = cpu.model.stages(*cpu.inputs(*seen[0]))
                 own = est.model.stages(*est.inputs(*seen[0]))
@@ -611,7 +623,7 @@ def baseline_phases(torch, ps, device, card, clock, tmp):
         steady = timer.times[1:]
         out[name] = {"ms_median": float(np.median(steady)),
                      "ms_p90": float(np.percentile(steady, 90)), "peak_mib": peak - held,
-                     "launches": fwd, "keyframes": len(preds), "gap": gap}
+                     "launches": fwd, "keyframes": len(preds), "gap": gap, "inputs": seen}
         print(f"[baselines] {name} {est.image_width}x{est.image_height}: {len(preds)} keyframes, "
               f"predict median {out[name]['ms_median']:.3f} ms p90 {out[name]['ms_p90']:.3f} ms "
               f"over {len(steady)} (first {timer.times[0]:.1f} ms), peak memory {peak - held:.1f} "
@@ -621,6 +633,50 @@ def baseline_phases(torch, ps, device, card, clock, tmp):
         if not gap <= BASELINE_RTOL:
             raise AssertionError(f"{name}: card and CPU disagree ({gap:.3e})")
     return out
+
+
+def baseline_graphs_phase(torch, card, clock, baselines):
+    """[baseline-graphs]: each baseline's predict graphed (the default) and
+    eager in turns over the [baselines] keyframes
+    (``apps/profile_baselines.py::compare_paths``); returns the numbers for
+    the JSON line."""
+    from dvmvs_tpu_torch.apps.profile_baselines import compare_paths
+
+    report = {}
+    for name, graphs in BASELINE_GRAPHS.items():
+        r = compare_paths(name, baselines[name]["inputs"], BASELINE_ROUNDS)
+        torch.cuda.empty_cache()
+        g, e = r["graphs"], r["eager"]
+        per, outside = g["host_launches_per_predict"], g["host_launches_outside_graphs"]
+        want_fwd = r["keyframes"] if name in ("mvdepthnet", "gpmvs") else 0
+        print(f"[baseline-graphs] {name}, {r['keyframes']} keyframes, {BASELINE_ROUNDS} passes a "
+              f"path in turns: graphed against eager depth gap {r['depth_gap']:.3e} (tol "
+              f"{BASELINE_RTOL:g}; {'bit-equal' if r['bit_equal'] else 'NOT bit-equal'}); host "
+              f"calls inside one graphed predict: {per['cudaGraphLaunch']:g} cudaGraphLaunch "
+              f"(want {graphs}), {per['cudaLaunchKernel']:g} kernel launches "
+              f"({outside['cudaLaunchKernel']:g} of them in the SVD between the graphs), "
+              f"{per['memcpy']:g} copies; eager "
+              f"{e['host_launches_per_predict']['cudaLaunchKernel']:g} kernel launches; forward "
+              f"kernel launches in a graphed pass {r['plane_sweep_launches_graphed_pass']} (want "
+              f"{want_fwd}); predict median / p90 graphed {g['predict_ms']['median']:.3f} / "
+              f"{g['predict_ms']['p90']:.3f} ms, eager {e['predict_ms']['median']:.3f} / "
+              f"{e['predict_ms']['p90']:.3f} ms; first-pass peak above the weights graphed "
+              f"{g['first_pass_peak_mib']:.1f} MiB, eager {e['first_pass_peak_mib']:.1f} MiB; "
+              f"kept between calls (the graphs' pools) {g['kept_mib']:.1f} MiB, eager "
+              f"{e['kept_mib']:.1f} MiB ({lap(clock):.1f} s) | {card}", flush=True)
+        if not r["depth_gap"] <= BASELINE_RTOL:
+            raise AssertionError(f"{name}: the graphed predict disagrees with the eager one")
+        if per["cudaGraphLaunch"] != graphs or r["captured_steps"] != graphs \
+                or per["cudaLaunchKernel"] != outside["cudaLaunchKernel"] \
+                or (name != "deltas" and per["cudaLaunchKernel"] != 0):
+            raise AssertionError(f"{name}: a graphed predict is not {graphs} graph launch(es) "
+                                 f"and copies: {g['host_api_calls_in_predict']}")
+        if r["plane_sweep_launches_graphed_pass"] != want_fwd \
+                or r["backward_launches_graphed_pass"]:
+            raise AssertionError(f"{name}: {r['plane_sweep_launches_graphed_pass']} forward "
+                                 f"launches counted for {r['keyframes']} replays")
+        report[name] = r
+    return report
 
 
 def real_data_phase(torch, ps, device, cfg, card, clock, tmp, corpus):
@@ -1557,6 +1613,8 @@ def main():
     # 12b. the four baselines through their evaluation loop
     with tempfile.TemporaryDirectory() as tmp:
         baselines = baseline_phases(torch, ps, device, card, clock, tmp)
+    # 12d. [baseline-graphs] the baselines' graphed predict against the eager one
+    baseline_graphs = baseline_graphs_phase(torch, card, clock, baselines)
 
     # 13. results: the forward at the online shape (its main path), the
     # backward at the training shape
@@ -1636,7 +1694,15 @@ def main():
         "single_launch_timer": SINGLE_LAUNCH_TIMER,
         "launches_parallel_step": {k: v["bwd"] for k, v in parallel.items()},
         "launches_real_data": real["bwd"],
-    }], "graphs": graphs, "parallel_step_ms": {k: v["ms"] for k, v in parallel.items()},
+    }], "graphs": graphs, "baseline_graphs": {
+        name: {k: v for k, v in r.items() if k in ("depth_gap", "bit_equal", "captured_steps",
+                                                   "plane_sweep_launches_graphed_pass")}
+        | {mode: {k: r[mode][k] for k in ("predict_ms", "first_pass_peak_mib", "kept_mib",
+                                          "host_launches_per_predict",
+                                          "host_launches_outside_graphs")}
+           for mode in ("graphs", "eager")}
+        for name, r in baseline_graphs.items()},
+        "parallel_step_ms": {k: v["ms"] for k, v in parallel.items()},
         "real_data": {k: v for k, v in real.items() if k not in ("fwd", "bwd")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

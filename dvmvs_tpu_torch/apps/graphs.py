@@ -1,6 +1,7 @@
-"""CUDA graphs of the engine's steps: the counterpart of the JAX engine's
-jitted programs (dvmvs_tpu/apps/engine.py:57-71), where a step or a chunk
-of T steps is one compiled dispatch.
+"""CUDA graphs of the engine's and the baselines' steps: the counterpart of
+the JAX package's jitted programs (dvmvs_tpu/apps/engine.py:57-71, where a
+step or a chunk of T steps is one compiled dispatch, and the baselines'
+jitted forwards, dvmvs_tpu/baselines/).
 
 A step is a body: a plain function of tensors that reads its arguments and
 the model's weights, may write the recurrent state it is given in place, and
@@ -81,11 +82,15 @@ class StepGraph:
     static buffers; ``state``: the tensors among them that the body writes
     in place, restored after the warm-up runs so that warming up does not
     advance the recurrence; ``warmup``: runs before the capture (0 when the
-    same shapes were warmed up by an earlier capture)."""
+    same shapes were warmed up by an earlier capture); ``owner`` and
+    ``eager``: who runs the step and how its eager path is asked for, named
+    by the errors."""
 
     def __init__(self, name: str, body: Callable, args: Dict, state: Sequence[torch.Tensor] = (),
-                 warmup: int = WARMUP_RUNS):
+                 warmup: int = WARMUP_RUNS, owner: str = "the engine",
+                 eager: str = "InferenceEngine(..., graphs=False)"):
         self.name, self.body, self.args = name, body, args
+        self.owner, self.eager = owner, eager
         self.state = tuple(state)
         self.warmup = warmup
         self.device = next(leaves(args)).device
@@ -107,7 +112,8 @@ class StepGraph:
         try:
             self.graph.replay()
         except RuntimeError as err:
-            raise RuntimeError(f"replay of the CUDA graph of {self.name!r} failed") from err
+            raise RuntimeError(f"replay of the CUDA graph of {self.owner} step {self.name!r} "
+                               f"failed ({self.eager} is the eager path)") from err
         plane_sweep.launch_count += self.launches[0]
         plane_sweep.backward_launch_count += self.launches[1]
         return self.outputs
@@ -133,8 +139,8 @@ class StepGraph:
                 outputs = self.body(**self.args)
         except RuntimeError as err:
             raise RuntimeError(
-                f"CUDA graph capture of the engine step {self.name!r} failed; it is not run "
-                "eagerly instead (InferenceEngine(..., graphs=False) is the eager path)") from err
+                f"CUDA graph capture of {self.owner} step {self.name!r} failed; it is not run "
+                f"eagerly instead ({self.eager} is the eager path)") from err
         finally:
             recorded = tuple(a - b for a, b in zip(_launch_counts(), before))
             plane_sweep.launch_count, plane_sweep.backward_launch_count = before

@@ -1,29 +1,46 @@
 """Where the baselines' time and device memory go on the card, stage by
-stage, at their full sizes with seeded weights.
+stage, at their full sizes with seeded weights, and ``predict`` graphed
+against eager.
 
 For MVDepthNet (GP-MVS adds its host Kalman step to the same stages), DPSNet
-and DELTAS: the median CUDA-event time of each stage over ``--reps`` calls
-after a warm-up call, the whole ``predict`` (host upload and readback
-included) beside them, and for each model the leaf module whose call raises
-the allocation most above what was allocated before it (cuDNN's workspace
-shows there). Prints one JSON object, also written to ``--out``.
+and DELTAS, on the eager path (``graphs=False``): the median CUDA-event time
+of each stage over ``--reps`` calls after a warm-up call, the whole
+``predict`` (host upload and readback included) beside them, and for each
+model the leaf module whose call raises the allocation most above what was
+allocated before it (cuDNN's workspace shows there).
 
-Run: ``python -m dvmvs_tpu_torch.apps.profile_baselines [--out FILE]``
-(needs the card; TF32 off).
+Under ``paths``, for each of the four baselines, a graphed (the default,
+``baselines/steps.py``) and an eager estimator over the same ``--keyframes``
+seeded keyframes (``compare_paths``): each estimator's first pass (the
+graphed one captures there) with its peak device memory above the weights
+and the device memory it keeps reserved after the pass (``kept_mib``,
+measured after ``torch.cuda.empty_cache()``: the graphs' private pools,
+which live as long as the estimator); then ``--rounds`` passes of each in
+turns, the host wall time of every ``predict`` (median, p90); the depth gap
+between the paths; the plane-sweep launches of a graphed pass; and from a
+``torch.profiler`` trace of one more pass each, the host CUDA API calls
+inside one ``predict`` (``cudaGraphLaunch``, kernel launches, copies).
+
+Prints one JSON object, also written to ``--out``.
+
+Run: ``python -m dvmvs_tpu_torch.apps.profile_baselines [--out FILE]
+[--reps N] [--keyframes N] [--rounds N]`` (needs the card; TF32 off).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 import dvmvs_tpu_torch.apps.run_testing_baseline  # noqa: F401  (registry population)
-from dvmvs_tpu_torch.baselines import BASELINE_REGISTRY
+from dvmvs_tpu_torch.baselines import BASELINE_REGISTRY, deltas
 from dvmvs_tpu_torch.baselines.deltas import (
     BORDER,
     sample_descriptors,
@@ -32,6 +49,10 @@ from dvmvs_tpu_torch.baselines.deltas import (
 )
 from dvmvs_tpu_torch.baselines.dpsnet import inverse_warp
 from dvmvs_tpu_torch.baselines.mvdepthnet import l1_cost_volume, upload_views
+from dvmvs_tpu_torch.ops import plane_sweep
+
+NAMES = ("mvdepthnet", "gpmvs", "dpsnet", "deltas")
+PREDICT_RANGE, SVD_RANGE = "baseline.predict", "baseline.eager_svd"
 
 
 def median_ms(fn, reps: int) -> float:
@@ -87,7 +108,7 @@ def profile(reps: int = 10) -> dict:
     meas_pose[0, 3] = 0.1
     out = {}
 
-    est = BASELINE_REGISTRY["mvdepthnet"](device="cuda")
+    est = BASELINE_REGISTRY["mvdepthnet"](device="cuda", graphs=False)
     m, (W, H) = est.model, (est.image_width, est.image_height)
     img = frames(rs, W, H)
     K = np.array([[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]], np.float32)
@@ -102,7 +123,7 @@ def profile(reps: int = 10) -> dict:
                                 reps),
         "leaf_peak_mib": leaf_peaks(m, lambda: m(*args))}
 
-    est = BASELINE_REGISTRY["dpsnet"](device="cuda")
+    est = BASELINE_REGISTRY["dpsnet"](device="cuda", graphs=False)
     m = est.model
     ref = torch.from_numpy(img[0]).to(est.device).permute(2, 0, 1)[None]
     fea = m.feature_extraction(ref)
@@ -124,7 +145,7 @@ def profile(reps: int = 10) -> dict:
         "predict_ms": median_ms(lambda: est.predict(img[0], img[1:], pose, [meas_pose] * 2, K),
                                 reps)}
 
-    est = BASELINE_REGISTRY["deltas"](device="cuda")
+    est = BASELINE_REGISTRY["deltas"](device="cuda", graphs=False)
     m, (W, H) = est.model, (est.image_width, est.image_height)
     img = frames(rs, W, H)
     K = np.array([[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]], np.float32)
@@ -147,11 +168,141 @@ def profile(reps: int = 10) -> dict:
     return out
 
 
+def seeded_keyframes(name: str, n: int, seed: int = 0):
+    """The ``predict`` arguments of n keyframes (ref frame, two measurement
+    frames, their poses 10 cm apart, K) of random normalised frames at the
+    baseline's size."""
+    cls = BASELINE_REGISTRY[name]
+    W, H = cls.image_width, cls.image_height
+    rs = np.random.RandomState(seed)
+    images = frames(rs, W, H, n + 2)
+    poses = [np.eye(4) for _ in range(n + 2)]
+    for i, p in enumerate(poses):
+        p[0, 3] = 0.1 * i
+    K = np.array([[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]], np.float32)
+    return [(images[i], [images[i - 1], images[i - 2]], poses[i], [poses[i - 1], poses[i - 2]],
+             K) for i in range(2, n + 2)]
+
+
+def depth_gap(got, want) -> float:
+    """max |got - want| over max |want| of each keyframe, the largest."""
+    return max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(got, want))
+
+
+@contextlib.contextmanager
+def svd_range():
+    """DELTAS's SVD (``deltas.dlt_solve``, run between its two graphs)
+    inside a profiler range of its own, ``SVD_RANGE``."""
+    real = deltas.dlt_solve
+
+    def ranged_svd(A):
+        with torch.profiler.record_function(SVD_RANGE):
+            return real(A)
+
+    deltas.dlt_solve = ranged_svd
+    try:
+        yield
+    finally:
+        deltas.dlt_solve = real
+
+
+def compare_paths(name: str, keyframes, rounds: int) -> dict:
+    """``predict`` of a graphed and an eager estimator (seed 0) over
+    ``keyframes`` (``predict``'s argument tuples; module doc), the
+    estimators reset before each pass. The depth gap is taken on
+    the depths each path reads back (DELTAS's before its clip: with seeded
+    weights the clipped depth is one constant); the host calls of DELTAS's
+    SVD, between its two graphs, are also counted apart
+    (``host_launches_outside_graphs``)."""
+    from dvmvs_tpu_torch.apps.profile_step import (api_calls, launches_per_call, ranged,
+                                                   trace_events)
+
+    ests = {mode: BASELINE_REGISTRY[name](device="cuda", seed=0, graphs=mode == "graphs")
+            for mode in ("eager", "graphs")}
+    peak, kept, raw, returned = {}, {}, {}, {}
+
+    def run(mode):
+        est = ests[mode]
+        est.reset()
+        raw[mode] = []
+        est._readback = lambda depth, real=type(est)._readback: (
+            raw[mode].append(real(depth)), raw[mode][-1])[1]
+        try:
+            returned[mode] = [est.predict(*kf) for kf in keyframes]
+        finally:
+            del est._readback
+
+    for mode in ests:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        run(mode)  # a new graphed estimator captures here
+        torch.cuda.synchronize()
+        peak[mode] = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+        torch.cuda.empty_cache()  # what stays reserved is the graphs' pools
+        kept[mode] = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
+    times = {mode: [] for mode in ests}
+    for _ in range(rounds):
+        for mode, est in ests.items():
+            est.reset()
+            for kf in keyframes:
+                t0 = time.perf_counter()
+                est.predict(*kf)
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+    plane_sweep.launch_count = plane_sweep.backward_launch_count = 0
+    run("graphs")
+    launches = (plane_sweep.launch_count, plane_sweep.backward_launch_count)
+    run("eager")
+    report = {
+        "keyframes": len(keyframes), "rounds": rounds,
+        "depth_gap": depth_gap(raw["graphs"], raw["eager"]),
+        "bit_equal": all(np.array_equal(a, b) for a, b in zip(
+            raw["graphs"] + returned["graphs"], raw["eager"] + returned["eager"])),
+        "plane_sweep_launches_graphed_pass": launches[0],
+        "backward_launches_graphed_pass": launches[1],
+        "captured_steps": len(ests["graphs"].step_graphs)}
+    for mode, est in ests.items():
+        ranged(est, ("predict",), prefix="baseline.")
+        try:
+            with svd_range(), torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU,
+                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+                run(mode)
+                torch.cuda.synchronize()
+        finally:
+            del est.predict
+        events = trace_events(prof)
+        calls, svd = api_calls(events, PREDICT_RANGE), api_calls(events, SVD_RANGE)
+        t = np.asarray(times[mode])
+        report[mode] = {
+            "predict_ms": {"median": float(np.median(t)), "p90": float(np.percentile(t, 90)),
+                           "n": int(t.size)},
+            "first_pass_peak_mib": peak[mode], "kept_mib": kept[mode],
+            "host_launches_per_predict": launches_per_call(calls),
+            "host_launches_outside_graphs": {
+                k: v * max(svd["ranges"], 1) / max(calls["ranges"], 1)
+                for k, v in launches_per_call(svd).items()},
+            "host_api_calls_in_predict": calls}
+    return report
+
+
+def paths(n_keyframes: int, rounds: int) -> dict:
+    out = {}
+    for name in NAMES:
+        out[name] = compare_paths(name, seeded_keyframes(name, n_keyframes), rounds)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default=None, help="also write the JSON here")
-    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--reps", type=int, default=10, help="timed calls a stage")
+    ap.add_argument("--keyframes", type=int, default=8, help="keyframes a pass (paths)")
+    ap.add_argument("--rounds", type=int, default=5,
+                    help="timed passes of each path, in turns (paths)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_baselines: needs a GPU (torch.cuda.is_available() is false)")
@@ -159,7 +310,7 @@ def main(argv: Optional[Sequence[str]] = None):
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    result = {"card": card, **profile(args.reps)}
+    result = {"card": card, **profile(args.reps), "paths": paths(args.keyframes, args.rounds)}
     text = json.dumps(result, indent=1)
     print(text)
     if args.out:

@@ -30,6 +30,7 @@ inference never applies them, so load ``state_dict_tri`` with
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import numpy as np
@@ -37,7 +38,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dvmvs_tpu_torch.baselines.registry import DepthEstimator, pad_views, register_baseline
+from dvmvs_tpu_torch.baselines.registry import register_baseline
+from dvmvs_tpu_torch.baselines.steps import GraphedEstimator, relative_inputs, relative_views
 from dvmvs_tpu_torch.models.layers import BN_EPS, BN_MOMENTUM, BatchNorm2d, seeded_model
 from dvmvs_tpu_torch.ops.sampling import grid_sample, resize_bilinear_align_corners
 
@@ -58,14 +60,21 @@ def _conv(in_channels, features, kernel, bias=False, stride=1, dilation=1):
                      dilation=dilation, bias=bias)
 
 
+def nearest_indices(n_out: int, n_in: int, device=None) -> torch.Tensor:
+    """(n_out,) int64 source indices floor(dst * in/out), the product in
+    float32 as the JAX package computes it, made on ``device`` (no host
+    upload, so a forward that calls it captures)."""
+    scale = float(np.float32(n_in / n_out))  # a float32 value; the product stays float32
+    return torch.floor(torch.arange(n_out, dtype=torch.float32, device=device) * scale).long()
+
+
 def nearest_resize_torch(x, out_h: int, out_w: int):
     """``F.interpolate(mode="nearest")``'s index rule, src = floor(dst *
     in/out) in float32, as the JAX package computes it (the Gudi block's
     resize when the skip's size is not a multiple of the input's)."""
     H, W = x.shape[-2:]
-    ih = np.floor(np.arange(out_h, dtype=np.float32) * np.float32(H / out_h)).astype(np.int64)
-    iw = np.floor(np.arange(out_w, dtype=np.float32) * np.float32(W / out_w)).astype(np.int64)
-    return x[:, :, torch.from_numpy(ih).to(x.device)][:, :, :, torch.from_numpy(iw).to(x.device)]
+    return x[:, :, nearest_indices(out_h, H, x.device)][:, :, :, nearest_indices(out_w, W,
+                                                                                  x.device)]
 
 
 def unpool_zero(x, out_h: int, out_w: int):
@@ -221,8 +230,9 @@ def sample_descriptors(points, desc, stride: int = 8, normalize: bool = True):
 # ----------------------------------------------------- epipolar triangulation
 def fundamental_matrix(rel_pose, K):
     """F = K^-T [t]x R K^-1, divided by F[2, 2] (rel_pose (B, 4, 4):
-    measurement <- reference)."""
-    Kinv = torch.linalg.inv(K)
+    measurement <- reference). ``inv_ex``: ``inv`` checks its result on the
+    host, which a capture cannot do; the inverse is the same."""
+    Kinv = torch.linalg.inv_ex(K).inverse
     R, t = rel_pose[:, :3, :3], rel_pose[:, :3, 3]
     zero = torch.zeros_like(t[:, 0])
     t_skew = torch.stack([zero, -t[:, 2], t[:, 1],
@@ -237,7 +247,7 @@ def reproject_at_depth(keypoints, rel_pose, K, depth: float):
     """K R K^-1 uv + K t / Z, divided by the third coordinate: keypoints
     (B, N, 2) -> (B, N, 2)."""
     uv1 = torch.cat([keypoints, torch.ones_like(keypoints[..., :1])], dim=-1)
-    A = K @ rel_pose[:, :3, :3] @ torch.linalg.inv(K)
+    A = K @ rel_pose[:, :3, :3] @ torch.linalg.inv_ex(K).inverse
     Kt = (K @ rel_pose[:, :3, 3:4])[..., 0]  # (B, 3)
     proj = torch.einsum("bij,bnj->bni", A, uv1) + Kt[:, None] / depth
     return proj[..., :2] / proj[..., 2:3]
@@ -295,17 +305,36 @@ def soft_argmax_2d(heatmap):
     return (m.sum(dim=-2) * xs).sum(dim=-1), (m.sum(dim=-1) * ys).sum(dim=-1)
 
 
-def triangulate_dlt(proj_matrices, points, confidences):
-    """Confidence-weighted multi-view linear triangulation. proj_matrices
-    (B, V, 3, 4); points (B, Kn, V, 2); confidences (B, Kn, V). Returns
-    (B, Kn, 3). The homogeneous solution is divided by its own last
-    coordinate, so the SVD's sign does not matter."""
+def dlt_system(proj_matrices, points, confidences):
+    """The confidence-weighted DLT system of each keypoint: proj_matrices
+    (B, V, 3, 4); points (B, Kn, V, 2); confidences (B, Kn, V) -> (B, Kn,
+    2V, 4)."""
     B, Kn, V = points.shape[:3]
     A = points[..., None] * proj_matrices[:, None, :, 2:3]  # (B, Kn, V, 2, 4)
     A = (A - proj_matrices[:, None, :, :2]) * confidences[..., None, None]
-    _, _, Vh = torch.linalg.svd(A.reshape(B, Kn, 2 * V, 4), full_matrices=False)
+    return A.reshape(B, Kn, 2 * V, 4)
+
+
+def dlt_solve(A):
+    """The right singular vectors (B, Kn, 4, 4) of the DLT systems. The SVD
+    checks its convergence on the host, so it cannot be captured: on the
+    card DELTAS runs it between its two graphs."""
+    return torch.linalg.svd(A, full_matrices=False)[2]
+
+
+def dlt_points(Vh):
+    """The least-squares points (B, Kn, 3) from the singular vectors: the
+    homogeneous solution divided by its own last coordinate, so the SVD's
+    sign does not matter."""
     hom = -Vh[..., 3, :]
     return hom[..., :3] / (hom[..., 3:4] + 1e-12)
+
+
+def triangulate_dlt(proj_matrices, points, confidences):
+    """Confidence-weighted multi-view linear triangulation. proj_matrices
+    (B, V, 3, 4); points (B, Kn, V, 2); confidences (B, Kn, V). Returns
+    (B, Kn, 3)."""
+    return dlt_points(dlt_solve(dlt_system(proj_matrices, points, confidences)))
 
 
 class TriangulationNet(nn.Module):
@@ -324,6 +353,14 @@ class TriangulationNet(nn.Module):
         """keypoints (B, Kn, 2); ref_desc_at_kp (B, Kn, C); meas_descs (B, V, C,
         h8, w8); rel_poses (B, V, 4, 4) measurement <- reference. Returns
         (points3d (B, Kn, 3), range_mask (B, Kn))."""
+        A, range_mask = self.system(keypoints, kp_scores, ref_desc_at_kp, meas_descs, rel_poses,
+                                    K, height, width, view_mask)
+        return dlt_points(dlt_solve(A)), range_mask
+
+    def system(self, keypoints, kp_scores, ref_desc_at_kp, meas_descs, rel_poses, K,
+               height: int, width: int, view_mask=None):
+        """``forward`` up to the DLT: (the systems (B, Kn, 2(V+1), 4),
+        range_mask (B, Kn))."""
         B, Kn = keypoints.shape[:2]
         V = meas_descs.shape[1]
         R, S = 2 * self.distance + 1, self.out_length
@@ -361,10 +398,9 @@ class TriangulationNet(nn.Module):
         projs = torch.stack([K @ eye34] + [K @ rel_poses[:, v, :3, :] for v in range(V)], dim=1)
         all_pts = torch.stack([keypoints] + matched, dim=2)                    # (B, Kn, V+1, 2)
         all_conf = torch.stack([torch.ones_like(kp_scores)] + confs, dim=2)   # (B, Kn, V+1)
-        pts3d = triangulate_dlt(projs, all_pts, all_conf)
         # a keypoint is usable if any view had a real segment
         range_mask = (torch.stack(widths, dim=-1) > 0).any(dim=-1)
-        return pts3d, range_mask
+        return dlt_system(projs, all_pts, all_conf), range_mask
 
 
 # ------------------------------------------------------------ densification
@@ -501,6 +537,18 @@ class DeltasModel(nn.Module):
         sparse_depth, depth. ``keypoints`` (B, Kn, 2) with their scores
         replace the detector's top-k when given (to hold the later stages to
         another run's keypoints)."""
+        front = self.front(ref_image, meas_images, rel_poses, K, view_mask, keypoints)
+        H, W = ref_image.shape[-2:]
+        back = self.back(dlt_solve(front["system"]), front["keypoints"], front["range_mask"],
+                         front["image_skips"], H, W)
+        return {"scores": front["scores"], "keypoints": front["keypoints"],
+                "kp_scores": front["kp_scores"], "range_mask": front["range_mask"], **back}
+
+    def front(self, ref_image, meas_images, rel_poses, K, view_mask=None,
+              keypoints: Optional[torch.Tensor] = None) -> dict:
+        """``stages`` up to the SVD: detection, description and matching
+        (scores, keypoints, kp_scores, range_mask, the DLT systems as
+        ``system`` and the image trunk's ``image_skips``)."""
         B, V = meas_images.shape[:2]
         H, W = ref_image.shape[-2:]
         scores, ref_desc, image_skips = self.superpoint(ref_image)
@@ -514,29 +562,37 @@ class DeltasModel(nn.Module):
         ref_d = sample_descriptors(kp, ref_desc)  # (B, Kn, 128)
         meas_descs = torch.stack([self.superpoint(meas_images[:, v])[1] for v in range(V)],
                                  dim=1)
-        pts3d, range_mask = self.triangulation(kp, kp_scores, ref_d, meas_descs, rel_poses, K,
-                                               H, W, view_mask)
+        system, range_mask = self.triangulation.system(kp, kp_scores, ref_d, meas_descs,
+                                                       rel_poses, K, H, W, view_mask)
+        return {"scores": scores, "keypoints": kp, "kp_scores": kp_scores, "system": system,
+                "range_mask": range_mask, "image_skips": image_skips}
 
+    def back(self, Vh, keypoints, range_mask, image_skips, height: int, width: int) -> dict:
+        """``stages`` after the SVD: the points from the singular vectors
+        ``Vh`` (``dlt_solve``), the sparse depth at the keypoints, and the
+        densifier's depth (B, H, W)."""
+        H, W = height, width
+        B = keypoints.shape[0]
+        pts3d = dlt_points(Vh)
         # impute the sparse depth: clamp to [0, max], keep range-valid
         # keypoints inside (min, max)
         dense = self.sparse_to_dense
         z = torch.clamp(pts3d[..., 2], 0.0, dense.max_depth)
         valid = range_mask & (z > dense.min_depth) & (z < dense.max_depth)
         z = z * valid
-        lin = kp[..., 1].long() * W + kp[..., 0].long()
+        lin = keypoints[..., 1].long() * W + keypoints[..., 0].long()
         lin = torch.where(valid, lin, H * W)  # the invalid ones land in a spare slot
         sparse_depth = z.new_zeros((B, H * W + 1)).scatter(1, lin, z)[:, :-1].reshape(B, H, W)
         sparse_mask = z.new_zeros((B, H * W + 1)).scatter(1, lin, torch.ones_like(z))
         depth, _ = dense(sparse_depth, sparse_mask[:, :-1].reshape(B, H, W), image_skips)
-        return {"scores": scores, "keypoints": kp, "kp_scores": kp_scores, "points3d": pts3d,
-                "range_mask": range_mask, "sparse_depth": sparse_depth, "depth": depth}
+        return {"points3d": pts3d, "sparse_depth": sparse_depth, "depth": depth}
 
     def forward(self, ref_image, meas_images, rel_poses, K, view_mask=None):
         return self.stages(ref_image, meas_images, rel_poses, K, view_mask)["depth"]
 
 
 @register_baseline("deltas")
-class Deltas(DepthEstimator):
+class Deltas(GraphedEstimator):
     image_width = 320
     image_height = 240
     scale_rgb = 255.0
@@ -547,30 +603,42 @@ class Deltas(DepthEstimator):
     std_rgb = tuple(0.5 * s for s in (0.229, 0.224, 0.225))
 
     def __init__(self, n_measurement_frames: int = 2, state_dict=None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", graphs: bool = True):
         """Runs on the card unless ``device="cpu"``; weights from a generator
-        seeded with ``seed``, or ``state_dict`` (the model's keys)."""
+        seeded with ``seed``, or ``state_dict`` (the model's keys).
+        ``graphs``: ``predict`` as two CUDA graph replays on the card, the
+        detector and matcher up to the DLT systems, then the densifier, with
+        the SVD between them (``dlt_solve``: it cannot be captured); else
+        eagerly."""
         self.V = n_measurement_frames
         self.model = seeded_model(DeltasModel(), seed, device, state_dict)
         self.device = next(self.model.parameters()).device
+        self._init_steps(graphs)
 
     def inputs(self, ref_image, meas_images, ref_pose, meas_poses, K):
         """Host frames and poses -> the model's batch-of-one device tensors
         (ref, meas, rel_poses, K, view_mask), views padded with view 0."""
-        images, poses, mask = pad_views(self.V, meas_images, meas_poses)
-        rel = np.stack([np.linalg.inv(p) @ ref_pose for p in poses])
+        host = relative_inputs(self.V, ref_image, meas_images, ref_pose, meas_poses, K)
+        return relative_views(**{k: self._fresh(v) for k, v in host.items()})
 
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.device)
+    def _front_body(self, **inputs):
+        front = self.model.front(*relative_views(**inputs))
+        return {k: front[k] for k in ("system", "keypoints", "range_mask", "image_skips")}
 
-        return (put(ref_image).permute(2, 0, 1)[None], put(images).permute(0, 3, 1, 2)[None],
-                put(rel)[None], put(K)[None], put(mask))
+    def _back_body(self, Vh, keypoints, range_mask, image_skips, height, width):
+        return self.model.back(Vh, keypoints, range_mask, image_skips, height, width)["depth"]
 
     @torch.inference_mode()
     def predict(self, ref_image, meas_images: List[np.ndarray], ref_pose, meas_poses,
                 K) -> np.ndarray:
-        depth = self.model(*self.inputs(ref_image, meas_images, ref_pose, meas_poses, K))
+        inputs = relative_inputs(self.V, ref_image, meas_images, ref_pose, meas_poses, K)
+        front = self._step("front", self._front_body, inputs)
+        height, width = np.shape(ref_image)[:2]
+        back = functools.partial(self._back_body, height=height, width=width)
+        depth = self._step("back", back, {"Vh": dlt_solve(front["system"])},
+                           fixed={k: front[k] for k in ("keypoints", "range_mask",
+                                                        "image_skips")})
         # the reference feeds the raw output to the metrics; the consumers
         # here (TSDF, inverse-depth metrics) need positive depth, so clamp to
         # the model's range
-        return np.clip(depth[0].cpu().numpy(), MIN_DEPTH, MAX_DEPTH)
+        return np.clip(self._readback(depth), MIN_DEPTH, MAX_DEPTH)

@@ -10,7 +10,8 @@ network refining each label slice; bilinear upsampling (half-pixel, as
 ``jax.image.resize``), softmax and soft-argmin over the labels, depth =
 mindepth * nlabel / disparity. Stock PyTorch operations throughout (cuDNN's
 ``conv3d`` on the card); the labels are folded into the batch instead of a
-loop. The state-dict names are the reference's whole-model file
+loop. On the card ``predict`` is one CUDA graph replay (the JAX package's
+one jit). The state-dict names are the reference's whole-model file
 (``feature_extraction.*``, ``dres0.*``, ``classify.*``, ``convs.*``).
 """
 
@@ -23,7 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dvmvs_tpu_torch.baselines.registry import DepthEstimator, pad_views, register_baseline
+from dvmvs_tpu_torch.baselines.registry import register_baseline
+from dvmvs_tpu_torch.baselines.steps import GraphedEstimator, relative_inputs, relative_views
 from dvmvs_tpu_torch.models.layers import (
     BN_EPS,
     BN_MOMENTUM,
@@ -126,6 +128,13 @@ def inverse_warp(feat, depth, rel_pose34, K):
                        align_corners=True)
 
 
+def feature_intrinsics(K):
+    """K (B, 3, 3) at the frame size -> at the 1/4 feature size: rows 0 and
+    1 by 1/4 (exact in float32), without a host tensor, so the forward
+    captures."""
+    return torch.cat([K[:, :2] * 0.25, K[:, 2:]], dim=1)
+
+
 class DPSNetModel(nn.Module):
     def __init__(self, nlabel: int = 64, mindepth: float = 0.5):
         super().__init__()
@@ -165,7 +174,7 @@ class DPSNetModel(nn.Module):
         B, V = targets.shape[:2]
         H, W = ref.shape[-2:]
         L = self.nlabel
-        K4 = K * torch.tensor([0.25, 0.25, 1.0], dtype=K.dtype, device=K.device)[None, :, None]
+        K4 = feature_intrinsics(K)
         ref_fea = self.feature_extraction(ref)  # (B, 32, h, w)
         C, h, w = ref_fea.shape[1:]
         labels = torch.arange(L, dtype=torch.float32, device=ref.device)
@@ -196,7 +205,7 @@ class DPSNetModel(nn.Module):
 
 
 @register_baseline("dpsnet")
-class DPSNet(DepthEstimator):
+class DPSNet(GraphedEstimator):
     image_width = 320
     image_height = 256
     scale_rgb = 255.0
@@ -204,23 +213,22 @@ class DPSNet(DepthEstimator):
     std_rgb = (0.5, 0.5, 0.5)
 
     def __init__(self, n_measurement_frames: int = 2, state_dict=None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", graphs: bool = True):
         """Runs on the card unless ``device="cpu"``; weights from a generator
-        seeded with ``seed``, or ``state_dict`` (the reference's keys)."""
+        seeded with ``seed``, or ``state_dict`` (the reference's keys).
+        ``graphs``: ``predict`` as one CUDA graph replay on the card
+        (``baselines/steps.py``), else eagerly."""
         self.V = n_measurement_frames
         self.model = seeded_model(DPSNetModel(), seed, device, state_dict)
         self.device = next(self.model.parameters()).device
+        self._init_steps(graphs)
+
+    def _forward_body(self, **inputs):
+        return self.model(*relative_views(**inputs))[1]
 
     @torch.inference_mode()
     def predict(self, ref_image, meas_images: List[np.ndarray], ref_pose, meas_poses,
                 K) -> np.ndarray:
-        images, poses, mask = pad_views(self.V, meas_images, meas_poses)
-        rel = np.stack([(np.linalg.inv(p) @ ref_pose)[:3] for p in poses])
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.device)
-
-        out = self.model(put(ref_image).permute(2, 0, 1)[None],
-                         put(images).permute(0, 3, 1, 2)[None], put(rel)[None], put(K)[None],
-                         put(mask))[1]
-        return out[0].cpu().numpy()
+        inputs = relative_inputs(self.V, ref_image, meas_images, ref_pose, meas_poses, K,
+                                 rows=3)
+        return self._readback(self._step("forward", self._forward_body, inputs))

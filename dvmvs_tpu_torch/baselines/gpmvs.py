@@ -8,7 +8,10 @@ keyframe the 2-state SDE is propagated by expm(F dt) over the pose
 distance, then a scalar Kalman update of the flattened conv5 latent; the
 smoothed latent, ReLU'd, replaces conv5 in the decoder. The filter stays
 NumPy float64 on the host, as in the JAX package: conv5 goes to the host
-and comes back as float32. The batch GP form is ``gp_batch_smooth``.
+and comes back as float32. The batch GP form is ``gp_batch_smooth``. On the
+card ``predict`` is two CUDA graph replays, the JAX package's two jits: the
+encoder (the sweep's kernel launched inside it) and the decoder, which
+reads conv4..conv1 from the encoder graph's buffers on the device.
 """
 
 from __future__ import annotations
@@ -24,13 +27,15 @@ from scipy.linalg import expm
 from dvmvs_tpu_torch.baselines.mvdepth_backbone import MVDepthDecoder, MVDepthEncoder
 from dvmvs_tpu_torch.baselines.mvdepthnet import (
     MVDepthNet,
+    device_views,
+    host_views,
     inverse_disparity,
     l1_cost_volume,
-    upload_views,
 )
 from dvmvs_tpu_torch.baselines.registry import register_baseline
 from dvmvs_tpu_torch.models.layers import seeded_model
 from dvmvs_tpu_torch.ops.geometry import pose_distance_np
+from dvmvs_tpu_torch.utils.blas_threads import single_threaded_blas
 
 HYPERPARAMETERS = ("gamma2", "ell", "sigma2")
 
@@ -117,34 +122,47 @@ class GPMVSModel(nn.Module):
 @register_baseline("gpmvs")
 class GPMVS(MVDepthNet):
     def __init__(self, n_measurement_frames: int = 2, state_dict=None, gamma2: float = 1.0,
-                 ell: float = 1.0, sigma2: float = 0.1, seed: int = 0, device="cuda"):
+                 ell: float = 1.0, sigma2: float = 0.1, seed: int = 0, device="cuda",
+                 graphs: bool = True):
         """As MVDepthNet; the hyper-parameters come from ``state_dict``'s
         ``gplayer.*`` when given, else from the arguments."""
         self.V = n_measurement_frames
         self.model = seeded_model(GPMVSModel(gamma2, ell, sigma2), seed, device, state_dict)
         self.device = next(self.model.parameters()).device
+        self._init_steps(graphs)
         H, W = self.image_height, self.image_width
         latent_dim = 512 * (H // 32) * (W // 32)
         self.kalman = KalmanLatentState(latent_dim, **self.model.gplayer.hyperparameters())
         self.prev_pose: Optional[np.ndarray] = None
 
     def reset(self):
+        """A new scene or TRACKING LOST: the Kalman state restarts; the
+        graphs stay."""
         self.kalman.reset()
         self.prev_pose = None
+
+    def _encode_body(self, **views):
+        return self.model.encode(*device_views(**views))
+
+    def _decode_body(self, conv5, skips):
+        return self.model.decode(conv5, *skips)
 
     @torch.inference_mode()
     def predict(self, ref_image, meas_images: List[np.ndarray], ref_pose, meas_poses,
                 K) -> np.ndarray:
-        inputs = upload_views(self.device, ref_image, meas_images, ref_pose, meas_poses, K,
-                              self.V)
-        conv5, *skips = self.model.encode(*inputs)
+        views = host_views(self.V, ref_image, meas_images, ref_pose, meas_poses, K)
+        conv5, *skips = self._step("encode", self._encode_body, views)
         # Kalman smoothing of the flattened latent on the host; every latent
         # dimension has its own independent filter, so the NCHW order is as
-        # good as the JAX package's NHWC
+        # good as the JAX package's NHWC. OpenBLAS on one thread: its spinning
+        # workers would otherwise starve the thread that replays the graphs
         if self.prev_pose is None:
             self.prev_pose = meas_poses[-1]
         dt, _, _ = pose_distance_np(ref_pose, self.prev_pose)
-        z = self.kalman.step(conv5.cpu().numpy().ravel(), dt)
+        latent = conv5.to("cpu", copy=True).numpy().ravel()
+        with single_threaded_blas():
+            z = self.kalman.step(latent, dt)
         self.prev_pose = ref_pose
         z = np.maximum(z, 0.0).reshape(conv5.shape).astype(np.float32)
-        return self.model.decode(torch.from_numpy(z).to(self.device), *skips)[0].cpu().numpy()
+        return self._readback(self._step("decode", self._decode_body, {"conv5": z},
+                                         fixed={"skips": tuple(skips)}))

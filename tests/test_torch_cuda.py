@@ -434,8 +434,10 @@ def test_baselines_on_the_card_match_the_cpu(cuda_device, name):
     """Each baseline at a small size, same seeded weights, two keyframes
     (the second after GP-MVS's Kalman step has state): the card's depth
     within rtol 1e-5 of the CPU's; one forward launch a keyframe for the
-    U-Nets, none for DPSNet and DELTAS. DELTAS is held on the raw depth of
-    its dense stages with the CPU's keypoints (a near-tie may flip one).
+    U-Nets (on the graphed default, the first predict's WARMUP_RUNS warm-up
+    runs before the capture launch it too), none for DPSNet and DELTAS.
+    DELTAS is held on the raw depth of its dense stages with the CPU's
+    keypoints (a near-tie may flip one).
     The poses carry a small rotation: under a pure translation DPSNet's
     label 0 (depth 4e16) maps border pixels exactly onto the grid's edge,
     where the reference's rule (out of [-1, 1] -> 2, a zero sample) turns on
@@ -474,7 +476,7 @@ def test_baselines_on_the_card_match_the_cpu(cuda_device, name):
         before = tps.launch_count
         out[d] = [est.predict(*f[:4], K) for f in frames]
         if d != "cpu":
-            want = 2 if name in ("mvdepthnet", "gpmvs") else 0
+            want = 2 + WARMUP_RUNS if name in ("mvdepthnet", "gpmvs") else 0
             assert tps.launch_count - before == want
     for got, want in zip(out[cuda_device], out["cpu"]):
         assert got.shape == (h, w) and np.isfinite(got).all()
@@ -487,9 +489,85 @@ def test_profile_baselines_reports_every_stage(cuda_device, tmp_path):
     from dvmvs_tpu_torch.apps import profile_baselines
 
     out = tmp_path / "profile.json"
-    profile_baselines.main(["--reps", "1", "--out", str(out)])
+    profile_baselines.main(["--reps", "1", "--keyframes", "2", "--rounds", "1", "--out",
+                            str(out)])
     result = json.loads(out.read_text())
     assert {"mvdepthnet", "dpsnet", "deltas"} <= set(result)
     for name in ("mvdepthnet", "dpsnet", "deltas"):
         assert all(v > 0 for k, v in result[name].items() if k.endswith("ms") or "ms " in k)
     assert result["deltas"]["leaf_peak_mib"]
+    for name, graphs in cs.BASELINE_GRAPHS.items():
+        r = result["paths"][name]
+        assert r["depth_gap"] <= cs.BASELINE_RTOL and r["captured_steps"] == graphs
+        assert r["graphs"]["host_launches_per_predict"]["cudaGraphLaunch"] == graphs
+        assert r["eager"]["host_launches_per_predict"]["cudaLaunchKernel"] > 0
+        assert all(r[m]["predict_ms"]["median"] > 0 for m in ("graphs", "eager"))
+
+
+def _small_baseline(name, device, graphs):
+    """The seeded estimator at a small size (DPSNet with 8 labels)."""
+    import dvmvs_tpu_torch.apps.run_testing_baseline  # noqa: F401 (registry)
+    from dvmvs_tpu_torch.baselines import BASELINE_REGISTRY
+    from dvmvs_tpu_torch.baselines.dpsnet import DPSNetModel
+    from dvmvs_tpu_torch.models.layers import seeded_model
+
+    w, h = {"dpsnet": (128, 128), "deltas": (64, 48)}.get(name, (96, 64))
+    cls = type("Small", (BASELINE_REGISTRY[name],), {"image_width": w, "image_height": h})
+    est = cls(device=device, seed=5, graphs=graphs)
+    if name == "dpsnet":
+        est.model = seeded_model(DPSNetModel(8), 5, device)
+    rs = np.random.RandomState(9)
+    images = [rs.randn(h, w, 3).astype(np.float32) for _ in range(5)]
+    poses = [np.eye(4) for _ in range(5)]
+    for i, p in enumerate(poses):
+        p[:3, 3] = (0.1 * i, 0.01 * i, 0.0)
+    K = np.array([[0.8 * w, 0, w / 2], [0, 0.8 * w, h / 2], [0, 0, 1]], np.float32)
+    frames = [(images[i], [images[i - 1], images[i - 2]], poses[i], [poses[i - 1], poses[i - 2]],
+               K) for i in range(2, 5)]
+    return est, frames
+
+
+@pytest.mark.parametrize("name", ["mvdepthnet", "gpmvs", "dpsnet", "deltas"])
+def test_baselines_graphed_equal_eager_on_the_card(cuda_device, name):
+    """Each baseline at a small size: the graphed predict (captured at the
+    first keyframe) equals the eager one bit for bit on the depth each reads
+    back (DELTAS's before its clip), over three keyframes (GP-MVS through
+    its Kalman state); after the capture the forward kernel counts one
+    launch a replay in the U-Nets, none in DPSNet and DELTAS."""
+    raw = {}
+    for graphs in (False, True):
+        est, frames = _small_baseline(name, cuda_device, graphs)
+        raw[graphs] = []
+        est._readback = lambda d, real=type(est)._readback, out=raw[graphs]: (
+            out.append(real(d)), out[-1])[1]
+        est.predict(*frames[0])
+        before = tps.launch_count
+        for f in frames[1:]:
+            est.predict(*f)
+        want = len(frames) - 1 if name in ("mvdepthnet", "gpmvs") else 0
+        assert tps.launch_count - before == want
+    assert all(s.graph is not None for s in est.step_graphs.values())
+    assert len(est.step_graphs) == cs.BASELINE_GRAPHS[name]
+    for got, want in zip(raw[True], raw[False]):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_a_failed_baseline_capture_raises(cuda_device, monkeypatch):
+    """A forward that syncs with the host cannot be captured: the graphed
+    predict raises, naming the estimator's eager switch, and does not run
+    eagerly instead; the eager path runs the same forward."""
+    from dvmvs_tpu_torch.baselines.mvdepthnet import MVDepthNetModel
+
+    real = MVDepthNetModel.forward
+
+    def syncing(self, *args):
+        depth = real(self, *args)
+        return depth * float(depth.max().item())
+
+    monkeypatch.setattr(MVDepthNetModel, "forward", syncing)
+    est, frames = _small_baseline("mvdepthnet", cuda_device, graphs=False)
+    assert np.isfinite(est.predict(*frames[0])).all()
+    est, frames = _small_baseline("mvdepthnet", cuda_device, graphs=True)
+    with pytest.raises(RuntimeError, match=r"capture of the Small step 'forward' failed.*"
+                                           r"Small\(\.\.\., graphs=False\)"):
+        est.predict(*frames[0])
