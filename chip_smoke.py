@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (dvmvs_tpu_torch) on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
-hand-written kernels from ``dvmvs_tpu_torch/csrc`` (the plane sweep and its
-backward, one nvcc each, in parallel) and drives both paths of the port:
+hand-written kernels from ``dvmvs_tpu_torch/csrc`` (the plane sweep, its
+backward and DELTAS's DLT solve, one nvcc each, in parallel) and drives
+every path of the port:
 
   - online: the forward kernel against its plain PyTorch version at the
     online path's shape (eight geometries and modes, C=30 and C=64) and at
@@ -54,16 +55,24 @@ backward, one nvcc each, in parallel) and drives both paths of the port:
     [baseline-graphs]: each baseline graphed and eager in turns over those
     keyframes, the depths bit for bit (at most BASELINE_RTOL; DELTAS on its
     depth before the clip), one ``cudaGraphLaunch`` a ``predict`` (two for
-    GP-MVS around its host Kalman step and for DELTAS around its SVD, whose
-    kernel launches are the only ones outside the graphs), the forward
-    kernel once a keyframe inside the U-Nets' graphs;
+    GP-MVS around its host Kalman step) and no kernel launch, the forward
+    kernel once a keyframe inside the U-Nets' graphs and the DLT-solve
+    kernel once a keyframe inside DELTAS's; then [dlt]: the DLT-solve
+    kernel (``csrc/dlt_solve.cu``) against its plain version
+    (``torch.linalg.svd``) on DELTAS's systems of those keyframes and on a
+    seeded batch with masked views, on the points DELTAS keeps and on every
+    homogeneous solution, and its time beside its bound;
   - data parallel over NCCL at world size 1 (``parallel/mesh.py``):
     ``dryrun_multichip(1)``, one pairnet (B=14) and one fusionnet (B=4,
     S=8) step at 256x256 through the data-parallel path against the plain
     step (loss and BatchNorm buffers bit for bit, updated parameters within
-    the plain step's own repeat gap), both timed, and ``run_testing
-    --n-devices 1 --batch-size 8`` on the bulk scenes against the plain
-    batched run;
+    the plain step's own repeat gap); the graphed data-parallel step (its
+    all-reduces inside the graph) against the eager one under [train-graphs]'
+    rules (three steps from the eager run's state, the eager repeat's gap,
+    the planted fault, one ``cudaGraphLaunch`` a step), the two timed in
+    turns; and ``run_testing --n-devices 1 --batch-size 8`` on the bulk
+    scenes, its engine's steps graph replays, against the plain batched
+    run;
   - the accuracy proxy's driver (``apps/accuracy_proxy.py``) end to end at a
     smoke's size: corpus, pairnet then fusionnet training, evaluation of
     both best checkpoints and the report;
@@ -176,14 +185,32 @@ BASELINE_SCENE, BASELINE_KEYFRAMES = (11, 32), 8
 BASELINE_REF = {"mvdepthnet": 3, "gpmvs": 3, "dpsnet": 1, "deltas": 1}
 BASELINE_RTOL = 1e-5
 # [baseline-graphs]: graph launches a predict (GP-MVS: encoder and decoder
-# around its host Kalman step; DELTAS: detection to the DLT systems, and the
-# densifier, around the SVD, which cannot be captured) and the passes of each
-# path, in turns, over the [baselines] keyframes
-BASELINE_GRAPHS = {"mvdepthnet": 1, "gpmvs": 2, "dpsnet": 1, "deltas": 2}
+# around its host Kalman step; DELTAS: one, its DLT solve a kernel inside)
+# and the passes of each path, in turns, over the [baselines] keyframes
+BASELINE_GRAPHS = {"mvdepthnet": 1, "gpmvs": 2, "dpsnet": 1, "deltas": 1}
 BASELINE_ROUNDS = 2
+# [dlt]: the DLT-solve kernel against its plain version, torch.linalg.svd in
+# float32, and against the same call in float64 (the exact solution of the
+# float32 systems, to float32 rounding): the points DELTAS keeps (depth inside
+# its range on either side) within DLT_TOL of their largest coordinate, the
+# limit of tests/test_torch_deltas.py, and every homogeneous solution
+# [p, 1] / |[p, 1]| (up to its sign) within DLT_TOL: a point far out of range
+# keeps no float32 digit in p = x / w (tests/test_torch_dlt.py). The binding
+# limit is float64's: there the kept points, the range-masked points (DELTAS's
+# own range_mask on the scene, every point of the seeded batch) and the
+# homogeneous solutions must each be within DLT_TOL (measured 1e-7). This
+# stands in for a flat DLT_TOL against the float32 plain version, which the
+# plain version itself does not meet: on the card, cuSOLVER's float32 solve of
+# near rank-deficient systems (a view at 0.001 confidence beside a masked one)
+# stands up to 6.4e-4 from float64 where the kernel stands 1e-7 from it and
+# the CPU's LAPACK 2.2e-5 (measured on an NVIDIA H100 80GB HBM3 at 700 W). So
+# against float32 each of the three gaps is held to DLT_TOL plus that
+# version's own gap to float64. The seeded batch
+# (sweep_measure.dlt_case: masked views, near rank-deficient and noise-free
+# systems) has DLT_BATCH elements of DELTAS's 512 keypoints and 3 cameras
+DLT_TOL, DLT_BATCH = 1e-4, 8
 
-# [parallel]: pairnet's training batch; rounds of steps timed in turns
-PAIR_BATCH, PARALLEL_ROUNDS, PARALLEL_STEPS = 14, 3, 3
+PAIR_BATCH = 14  # pairnet's training batch
 # [train-graphs]: steps a path, each taken from the eager path's state before
 # it (copied in place into the path's own tensors, where a graph reads them).
 # One step from one state repeats itself but for rounding: the backward
@@ -589,8 +616,10 @@ def baseline_phases(torch, ps, device, card, clock, tmp):
     """[baselines]: each of the four baselines through
     ``run_testing_baseline.evaluate_scene_baseline`` on the card over one
     640x480 scene folder and its index file, against the same code on the
-    CPU; returns per baseline its ms a keyframe, peak MiB and launches."""
+    CPU; returns per baseline its ms a keyframe, peak MiB and launches (the
+    forward sweep's; DELTAS's DLT solve's)."""
     from dvmvs_tpu_torch.apps.run_testing_baseline import evaluate_scene_baseline
+    from dvmvs_tpu_torch.ops import dlt
     from dvmvs_tpu_torch.apps.simulate_keyframe_buffer import simulate_dataset
     from dvmvs_tpu_torch.baselines import BASELINE_REGISTRY
     from dvmvs_tpu_torch.data.scene_folders import write_scene_folders
@@ -617,17 +646,21 @@ def baseline_phases(torch, ps, device, card, clock, tmp):
         held = torch.cuda.memory_allocated() / 2 ** 20
         seen = []  # each keyframe's predict arguments, for [baseline-graphs]
         est.predict = lambda *a, real=est.predict: (seen.append(a), real(*a))[1]
+        dlt.launch_count = 0
         preds, _, peak, fwd, bwd = timed_run(torch, ps, lambda: run(est, BASELINE_KEYFRAMES,
                                                                     timer))
+        solves = dlt.launch_count
         del est.predict
         want_fwd = len(preds) if name in ("mvdepthnet", "gpmvs") else 0
+        want_solves = len(preds) if name == "deltas" else 0
         if len(preds) != BASELINE_KEYFRAMES or not all(
                 p.shape == (est.image_height, est.image_width) and np.isfinite(p).all()
                 and p.min() > 0 for p in preds):
             raise AssertionError(f"{name}: {len(preds)} depths, or bad shapes or values")
-        if fwd != want_fwd or bwd:
+        if fwd != want_fwd or bwd or solves != want_solves:
             raise AssertionError(f"{name}: forward kernel launched {fwd} times for {len(preds)} "
-                                 f"keyframes (want {want_fwd}), backward {bwd}")
+                                 f"keyframes (want {want_fwd}), backward {bwd}, DLT solve "
+                                 f"{solves} (want {want_solves})")
         cpu = BASELINE_REGISTRY[name](device="cpu", seed=0)
         n_ref = BASELINE_REF[name]
         if name == "deltas":
@@ -653,12 +686,14 @@ def baseline_phases(torch, ps, device, card, clock, tmp):
         steady = timer.times[1:]
         out[name] = {"ms_median": float(np.median(steady)),
                      "ms_p90": float(np.percentile(steady, 90)), "peak_mib": peak - held,
-                     "launches": fwd, "keyframes": len(preds), "gap": gap, "inputs": seen}
+                     "launches": fwd, "dlt_launches": solves, "keyframes": len(preds),
+                     "gap": gap, "inputs": seen}
         print(f"[baselines] {name} {est.image_width}x{est.image_height}: {len(preds)} keyframes, "
               f"predict median {out[name]['ms_median']:.3f} ms p90 {out[name]['ms_p90']:.3f} ms "
               f"over {len(steady)} (first {timer.times[0]:.1f} ms), peak memory {peak - held:.1f} "
               f"MiB above the {held:.1f} MiB held before (weights, earlier phases), "
-              f"forward kernel launches {fwd} (want {want_fwd}); {ref_text} "
+              f"forward kernel launches {fwd} (want {want_fwd}), DLT-solve kernel launches "
+              f"{solves} (want {want_solves}); {ref_text} "
               f"({lap(clock):.1f} s) | {card}", flush=True)
         if not gap <= BASELINE_RTOL:
             raise AssertionError(f"{name}: card and CPU disagree ({gap:.3e})")
@@ -677,35 +712,142 @@ def baseline_graphs_phase(torch, card, clock, baselines):
         r = compare_paths(name, baselines[name]["inputs"], BASELINE_ROUNDS)
         torch.cuda.empty_cache()
         g, e = r["graphs"], r["eager"]
-        per, outside = g["host_launches_per_predict"], g["host_launches_outside_graphs"]
+        per = g["host_launches_per_predict"]
         want_fwd = r["keyframes"] if name in ("mvdepthnet", "gpmvs") else 0
+        want_solves = r["keyframes"] if name == "deltas" else 0
+        solve_ms = (f"; DLT-solve kernel device time a predict graphed {g['dlt_solve_ms']:.4f} ms, "
+                    f"eager {e['dlt_solve_ms']:.4f} ms" if name == "deltas" else "")
         print(f"[baseline-graphs] {name}, {r['keyframes']} keyframes, {BASELINE_ROUNDS} passes a "
               f"path in turns: graphed against eager depth gap {r['depth_gap']:.3e} (tol "
               f"{BASELINE_RTOL:g}; {'bit-equal' if r['bit_equal'] else 'NOT bit-equal'}); host "
               f"calls inside one graphed predict: {per['cudaGraphLaunch']:g} cudaGraphLaunch "
-              f"(want {graphs}), {per['cudaLaunchKernel']:g} kernel launches "
-              f"({outside['cudaLaunchKernel']:g} of them in the SVD between the graphs), "
+              f"(want {graphs}), {per['cudaLaunchKernel']:g} kernel launches (want 0), "
               f"{per['memcpy']:g} copies; eager "
-              f"{e['host_launches_per_predict']['cudaLaunchKernel']:g} kernel launches; forward "
-              f"kernel launches in a graphed pass {r['plane_sweep_launches_graphed_pass']} (want "
-              f"{want_fwd}); predict median / p90 graphed {g['predict_ms']['median']:.3f} / "
-              f"{g['predict_ms']['p90']:.3f} ms, eager {e['predict_ms']['median']:.3f} / "
-              f"{e['predict_ms']['p90']:.3f} ms; first-pass peak above the weights graphed "
-              f"{g['first_pass_peak_mib']:.1f} MiB, eager {e['first_pass_peak_mib']:.1f} MiB; "
-              f"kept between calls (the graphs' pools) {g['kept_mib']:.1f} MiB, eager "
-              f"{e['kept_mib']:.1f} MiB ({lap(clock):.1f} s) | {card}", flush=True)
+              f"{e['host_launches_per_predict']['cudaLaunchKernel']:g} kernel launches, "
+              f"{e['host_launches_per_predict']['memcpy']:g} copies; kernel launches counted in "
+              f"a graphed pass: forward {r['plane_sweep_launches_graphed_pass']} (want "
+              f"{want_fwd}), DLT solve {r['dlt_solve_launches_graphed_pass']} (want "
+              f"{want_solves}){solve_ms}; predict median / p90 graphed "
+              f"{g['predict_ms']['median']:.3f} / {g['predict_ms']['p90']:.3f} ms, eager "
+              f"{e['predict_ms']['median']:.3f} / {e['predict_ms']['p90']:.3f} ms; first-pass "
+              f"peak above the weights graphed {g['first_pass_peak_mib']:.1f} MiB, eager "
+              f"{e['first_pass_peak_mib']:.1f} MiB; kept between calls (the graphs' pools) "
+              f"{g['kept_mib']:.1f} MiB, eager {e['kept_mib']:.1f} MiB ({lap(clock):.1f} s) | "
+              f"{card}", flush=True)
         if not r["depth_gap"] <= BASELINE_RTOL:
             raise AssertionError(f"{name}: the graphed predict disagrees with the eager one")
         if per["cudaGraphLaunch"] != graphs or r["captured_steps"] != graphs \
-                or per["cudaLaunchKernel"] != outside["cudaLaunchKernel"] \
-                or (name != "deltas" and per["cudaLaunchKernel"] != 0):
+                or per["cudaLaunchKernel"] != 0:
             raise AssertionError(f"{name}: a graphed predict is not {graphs} graph launch(es) "
                                  f"and copies: {g['host_api_calls_in_predict']}")
         if r["plane_sweep_launches_graphed_pass"] != want_fwd \
-                or r["backward_launches_graphed_pass"]:
-            raise AssertionError(f"{name}: {r['plane_sweep_launches_graphed_pass']} forward "
-                                 f"launches counted for {r['keyframes']} replays")
+                or r["backward_launches_graphed_pass"] \
+                or r["dlt_solve_launches_graphed_pass"] != want_solves:
+            raise AssertionError(f"{name}: {r['plane_sweep_launches_graphed_pass']} forward and "
+                                 f"{r['dlt_solve_launches_graphed_pass']} DLT-solve launches "
+                                 f"counted for {r['keyframes']} replays")
         report[name] = r
+    return report
+
+
+def dlt_gaps(got, want, mask=None):
+    """The DLT solve's gaps ([dlt]'s comment) between two (..., 3) point
+    sets: over the points of ``mask`` (all where None), relative to their
+    largest coordinate; over the points DELTAS keeps (depth inside its range
+    on either side); and over every homogeneous solution."""
+    from dvmvs_tpu_torch.baselines.deltas import MAX_DEPTH, MIN_DEPTH
+
+    got, want = got.double(), want.double()
+    if not (bool(got.isfinite().all()) and bool(want.isfinite().all())):
+        raise AssertionError("[dlt] non-finite points")
+    mask = got.new_ones(got.shape[:-1]).bool() if mask is None else mask
+
+    def diff(sel):
+        return float((got[sel] - want[sel]).abs().max()) if bool(sel.any()) else 0.0
+
+    def rel(sel):
+        return diff(sel) / float(want[sel].abs().max()) if bool(sel.any()) else 0.0
+
+    inside = [(p[..., 2] > MIN_DEPTH) & (p[..., 2] < MAX_DEPTH) for p in (got, want)]
+    kept = inside[0] | inside[1]
+    hom = [p.new_ones(p.shape[:-1] + (4,)) for p in (got, want)]
+    for h, p in zip(hom, (got, want)):
+        h[..., :3] = p
+    hom = [h / h.norm(dim=-1, keepdim=True) for h in hom]
+    sign = (hom[0] * hom[1]).sum(-1, keepdim=True).sign()
+    return {"range_masked": rel(mask), "kept": rel(kept), "kept_abs_m": diff(kept),
+            "kept_points": int(kept.sum()), "points": int(mask.sum()),
+            "homogeneous": float((hom[0] - sign * hom[1]).abs().max())}
+
+
+def dlt_phase(torch, card, clock, baselines):
+    """[dlt]: the DLT-solve kernel (``ops/dlt.py::launch``, launches not
+    counted) against its plain version in float32 and in float64 on
+    DELTAS's systems of the [baselines] keyframes (by seed-0 weights, as the
+    estimators there) and on a seeded batch (``sweep_measure.dlt_case``), by
+    ``dlt_gaps`` (DLT_TOL's comment); then its time at one keyframe's
+    systems, the main path's shape, beside its bound (``dlt_bound``), the
+    plain version's and torch.linalg.svd's (the same call). Returns the
+    numbers for the JSON line."""
+    from dvmvs_tpu_torch.baselines.deltas import Deltas, dlt_points, dlt_system
+    from dvmvs_tpu_torch.ops import dlt
+    from dvmvs_tpu_torch.ops.sweep_measure import (SINGLE_LAUNCH_TIMER, TIMER, dlt_bound,
+                                                   dlt_case, single_launch_ms, time_ms)
+
+    est = Deltas(device="cuda", seed=0, graphs=False)
+    with torch.inference_mode():
+        fronts = [est.model.front(*est.inputs(*kf)) for kf in baselines["deltas"]["inputs"]]
+    scene = torch.cat([f["system"] for f in fronts])
+    proj, points, conf = (torch.from_numpy(a).cuda() for a in dlt_case(seed=0, B=DLT_BATCH))
+    report = {}
+    for name, A, mask in (("scene", scene, torch.cat([f["range_mask"] for f in fronts])),
+                          ("seeded", dlt_system(proj, points, conf).contiguous(), None)):
+        got, want = dlt_points(dlt.launch(A)), dlt_points(dlt.dlt_solve_plain(A))
+        exact = dlt_points(dlt.dlt_solve_plain(A.double())).float()
+        again = dlt.launch(A)
+        torch.cuda.synchronize()
+        g = report[name] = {"plain": dlt_gaps(got, want, mask),
+                            "float64": dlt_gaps(got, exact, mask),
+                            "plain_to_float64": dlt_gaps(want, exact, mask),
+                            "deterministic": bool(torch.equal(dlt_points(again), got))}
+
+        def text(d):
+            return (f"kept points ({d['kept_points']} of {A.shape[0] * A.shape[1]}) "
+                    f"{d['kept']:.3e} of their largest coordinate, "
+                    f"{'range-masked' if mask is not None else 'all'} points ({d['points']}) "
+                    f"{d['range_masked']:.3e}, homogeneous {d['homogeneous']:.3e}")
+
+        print(f"[dlt] {name} systems {tuple(A.shape)}: kernel against torch.linalg.svd in "
+              f"float32 (the plain version) {text(g['plain'])}; against it in float64 "
+              f"{text(g['float64'])}; the float32 plain version against float64 "
+              f"{text(g['plain_to_float64'])} (tol {DLT_TOL:g}, against float32 plus its own "
+              f"gap to float64); two launches {'bit-equal' if g['deterministic'] else 'DIFFER'} "
+              f"({lap(clock):.1f} s)", flush=True)
+        own, held = g["plain_to_float64"], ("kept", "range_masked", "homogeneous")
+        if not (all(g["float64"][k] <= DLT_TOL for k in held)
+                and all(g["plain"][k] <= DLT_TOL + own[k] for k in held)
+                and g["deterministic"] and g["plain"]["kept_points"] > 0):
+            raise AssertionError(f"[dlt] the kernel disagrees with its plain version on {name}")
+    A = scene[:1].contiguous()
+    bound = dlt_bound(A)
+    kernel_ms = time_ms(lambda: dlt.launch(A))
+    plain_ms = time_ms(lambda: dlt.dlt_solve_plain(A))
+    library_ms = time_ms(lambda: torch.linalg.svd(A, full_matrices=False))
+    kernel_ms_2 = time_ms(lambda: dlt.launch(A))
+    single_ms = single_launch_ms(lambda: dlt.launch(A))
+    plain_single_ms = single_launch_ms(lambda: dlt.dlt_solve_plain(A))
+    print(f"[dlt] time at one keyframe's systems {tuple(A.shape)}: kernel {kernel_ms:.4f} ms "
+          f"(again {kernel_ms_2:.4f}; {TIMER}), single launches {single_ms:.4f} ms "
+          f"({SINGLE_LAUNCH_TIMER}); plain (torch.linalg.svd) {plain_ms:.4f} ms, single "
+          f"{plain_single_ms:.4f} ms; torch.linalg.svd again {library_ms:.4f} ms; bound "
+          f"{bound['bound_ms'] * 1e3:.4f} us by {bound['bound_by']} ({bound['bytes']} bytes, "
+          f"{bound['flops']} float64 flops) ({lap(clock):.1f} s)", flush=True)
+    report.update(shape=list(A.shape), ms=kernel_ms, ms_again=kernel_ms_2,
+                  ms_single_launch=single_ms, plain_ms=plain_ms, plain_ms_single=plain_single_ms,
+                  library_ms=library_ms, bound=bound,
+                  max_abs_err=max(report[n]["plain"]["kept_abs_m"] for n in ("scene", "seeded")),
+                  max_abs_err_float64=max(report[n]["float64"]["kept_abs_m"]
+                                          for n in ("scene", "seeded")))
     return report
 
 
@@ -1236,12 +1378,14 @@ def reassigning_adam(torch):
     return ReassignedState
 
 
-def lockstep_train_runs(torch, ps, base, kind, batches, flips, make_optimizer, modes):
+def lockstep_train_runs(torch, ps, base, kind, batches, flips, make_optimizer, modes,
+                        group=None):
     """GRAPH_STEPS steps of "eager" and of each of ``modes`` ("repeat":
     eagerly again; "free": eagerly, each step from its own last state;
     anything else through ``GraphedTrainStep``) from ``base``, each step
     but free ones taken from the eager run's state before it, copied in
-    place (GRAPH_STEPS' comment); ``make_optimizer(mode, model)``.
+    place (GRAPH_STEPS' comment); ``make_optimizer(mode, model)``; with
+    ``group``, every path the data-parallel step (``make_data_parallel``).
     Returns ({mode: [(loss, state after) a step]}, the eager states before
     each step, {mode: plane-sweep (forward, backward) launches of the steps
     after the first})."""
@@ -1250,8 +1394,10 @@ def lockstep_train_runs(torch, ps, base, kind, batches, flips, make_optimizer, m
     runs, before, launches = {}, [], {}
     for mode in ("eager", *modes):
         model = copy.deepcopy(base)
+        if group is not None:
+            tt.make_data_parallel(model, group)
         optimizer = make_optimizer(mode, model)
-        graphed = tt.GraphedTrainStep(model, kind, two_way=kind == "pairnet")
+        graphed = tt.GraphedTrainStep(model, kind, two_way=kind == "pairnet", group=group)
         steps = []  # eager runs leave ``graphed`` unused
         for i, (batch, flip) in enumerate(zip(batches, flips)):
             live = step_state(model, optimizer)
@@ -1266,7 +1412,7 @@ def lockstep_train_runs(torch, ps, base, kind, batches, flips, make_optimizer, m
                 ps.launch_count = ps.backward_launch_count = 0
             if mode in ("eager", "repeat", "free"):
                 metrics = tt.train_step(model, optimizer, batch, kind, two_way=kind == "pairnet",
-                                        flip_mask=flip.tolist())
+                                        flip_mask=flip.tolist(), group=group)
             else:
                 metrics = graphed.train(optimizer, batch, flip)
             steps.append((metrics["loss"].clone(), snapshot(step_state(model, optimizer))))
@@ -1312,6 +1458,109 @@ def train_gaps_within(gaps, repeat):
     return all(gaps[n] <= max(STEP_RTOL, EAGER_GAP_FACTOR * repeat[n]) for n in gaps)
 
 
+def lockstep_optimizer(torch, modules, lr):
+    """``lockstep_train_runs``' ``make_optimizer``: the card's capturable
+    Adam over ``modules``, or, for the "fault" mode, ``reassigning_adam``."""
+    from dvmvs_tpu_torch.parallel import train as tt
+
+    def make(mode, model):
+        if mode != "fault":
+            optimizer = tt.make_optimizer(model, modules, lr)
+            if not optimizer.param_groups[0]["capturable"]:
+                raise AssertionError("the card's optimizer is not capturable")
+            return optimizer
+        params = [p for name in modules for p in getattr(model, name).parameters()]
+        return reassigning_adam(torch)(params, lr=lr, eps=1e-8, capturable=True)
+
+    return make
+
+
+def check_lockstep(torch, ps, label, base, kind, batches, flips, modules, lr, modes, per_step,
+                   card, clock, group=None):
+    """``lockstep_train_runs`` of ``modes`` (with "graphs" and "fault")
+    under deterministic cuDNN, read by [train-graphs]' rules (GRAPH_STEPS'
+    comment): one line headed ``label``; raises if the graphed step leaves
+    the limits, the planted fault stays inside them, too many values are
+    noise leaves or the kernels are not counted at the replays (``per_step``
+    forward and backward launches a step). Returns the gaps by mode, the
+    noise leaves and the launches at the replays."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs, before, launches = lockstep_train_runs(
+            torch, ps, base, kind, batches, flips, lockstep_optimizer(torch, modules, lr), modes,
+            group)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    noisy = noise_leaves(runs)
+    sizes = [t.numel() for t in before[0]["parameters"]]
+    noisy_share = sum(sizes[j] for j in noisy) / sum(sizes)
+    gaps = {m: lockstep_gaps(runs[m], runs, before, noisy) for m in modes}
+    bit_equal = all(v == 0.0 for v in gaps["graphs"].values())
+    want_launches = (per_step * (GRAPH_STEPS - 1),) * 2
+
+    def text(g):
+        return ", ".join(f"{n} {g[n]:.3e}" for n in STEP_QUANTITIES)
+
+    free = (f"; and free-running (each step from its own last state; parameters of one "
+            f"step's update) {text(gaps['free'])}" if "free" in gaps else "")
+    print(f"{label}, {GRAPH_STEPS} steps from one seeded model, each from the eager run's state "
+          f"before it, capturable Adam, deterministic cuDNN; leaves left out as rounding "
+          f"noise {len(noisy)} of {len(sizes)} ({noisy_share:.2e} of the values): "
+          f"graphed against eager (largest relative L2 over the steps; parameters of the "
+          f"update) {text(gaps['graphs'])} ({'bit-equal' if bit_equal else 'NOT bit-equal'}); "
+          f"the eager path against its own repeat {text(gaps['repeat'])}{free}; planted fault "
+          f"(Adam state reassigned, not written in place) {text(gaps['fault'])}; plane-sweep "
+          f"launches counted over {GRAPH_STEPS - 1} replays {launches['graphs'][0]}/"
+          f"{launches['graphs'][1]} (want {want_launches[0]}/{want_launches[1]}) "
+          f"({lap(clock):.1f} s) | {card}", flush=True)
+    if noisy_share > NOISE_SHARE:
+        raise AssertionError(f"{label}: {noisy_share:.2e} of the values left out as noise")
+    if not train_gaps_within(gaps["graphs"], gaps["repeat"]):
+        raise AssertionError(f"{label}: the graphed step leaves the eager one by more than "
+                             f"its limits (GRAPH_STEPS' comment): {gaps['graphs']}")
+    if train_gaps_within(gaps["fault"], gaps["repeat"]):
+        raise AssertionError(f"{label}: the planted fault (reassigned Adam state) was not "
+                             f"caught: {gaps['fault']}")
+    if launches["graphs"] != want_launches:
+        raise AssertionError(f"{label}: plane-sweep launches at the replays "
+                             f"{launches['graphs']}, want {want_launches}")
+    return {"bit_equal": bit_equal, "gaps": gaps["graphs"], "eager_repeat_gaps": gaps["repeat"],
+            **({"eager_free_running_gaps": gaps["free"]} if "free" in gaps else {}),
+            "fault_gaps": gaps["fault"], "noise_leaves": len(noisy),
+            "launches_at_replays": list(launches["graphs"])}
+
+
+def timed_paths(torch, label, kind, batch, flip, card, clock, group=None):
+    """The graphed and the eager step timed in turns and profiled
+    (``profile_step.train_paths``, GRAPH_TIMING): one line headed
+    ``label``; raises unless a graphed step is one ``cudaGraphLaunch`` and
+    no kernel launch. Returns each path's numbers."""
+    from dvmvs_tpu_torch.apps.profile_step import train_paths
+
+    paths = train_paths(kind, batch, flip, two_way=kind == "pairnet", group=group,
+                        **GRAPH_TIMING)["modes"]
+    g, e = paths["graphs"], paths["eager"]
+    print(f"{label} step median / p90 graphed {g['step_ms']['median']:.3f} / "
+          f"{g['step_ms']['p90']:.3f} ms, eager {e['step_ms']['median']:.3f} / "
+          f"{e['step_ms']['p90']:.3f} ms; host calls in one step graphed "
+          f"{g['host_launches_per_step']}, eager {e['host_launches_per_step']}; device idle "
+          f"share of the unprofiled median graphed {g['device_idle_share_unprofiled']:.1%}, "
+          f"eager {e['device_idle_share_unprofiled']:.1%}; first-pass peak graphed "
+          f"{g['first_pass_peak_mib']:.1f} MiB, eager {e['first_pass_peak_mib']:.1f} MiB; "
+          f"kept reserved graphed {g['kept_mib']:.1f} MiB, eager {e['kept_mib']:.1f} MiB "
+          f"({lap(clock):.1f} s) | {card}", flush=True)
+    host = g["host_launches_per_step"]
+    if host["cudaGraphLaunch"] != 1.0 or host["cudaLaunchKernel"] != 0.0:
+        raise AssertionError(f"{label}: a graphed step is not one graph launch and copies: "
+                             f"{g['host_api_calls_in_step']}")
+    return {mode: {k: paths[mode][k] for k in (
+        "step_ms", "first_pass_peak_mib", "kept_mib", "host_launches_per_step",
+        "device_idle_share_unprofiled", "device_busy_ms")} for mode in ("graphs", "eager")}
+
+
+FLIPS = ([True, False], [False, True], [True, True])  # pairnet's flips, a step
+
+
 def train_graphs_phase(torch, ps, device, card, clock, corpus):
     """[train-graphs]: fusionnet B=4 S=8 and two-way pairnet B=14 at 256x256
     on the [train] corpus, GRAPH_STEPS steps through ``GraphedTrainStep``
@@ -1321,7 +1570,6 @@ def train_graphs_phase(torch, ps, device, card, clock, corpus):
     Adam whose state is reassigned instead of written in place); then the
     two paths timed in turns and one step of each profiled
     (``profile_step.train_paths``). Returns the numbers for the JSON line."""
-    from dvmvs_tpu_torch.apps.profile_step import train_paths
     from dvmvs_tpu_torch.apps.run_training import make_model
     from dvmvs_tpu_torch.config import TrainConfig
     from dvmvs_tpu_torch.data.dataset import MVSSequenceDataset, batch_iterator
@@ -1334,95 +1582,28 @@ def train_graphs_phase(torch, ps, device, card, clock, corpus):
         batches = [{k: torch.from_numpy(v).to(device) for k, v in raw.items()}
                    for raw, _ in zip(batch_iterator(data, b, shuffle=True, seed=1),
                                      range(GRAPH_STEPS))]
-        flips = [torch.tensor(f) for f in ([True, False], [False, True], [True, True])]
+        flips = [torch.tensor(f) for f in FLIPS]
         modules = (tt.FUSIONNET_STAGES if kind == "fusionnet" else tt.PAIRNET_STAGES)[-1]
         base = make_model(kind, cfg, device, seed=0).train()
-
-        def optimizer_for(mode, model):
-            if mode != "fault":
-                optimizer = tt.make_optimizer(model, modules, cfg.learning_rate)
-                if not optimizer.param_groups[0]["capturable"]:
-                    raise AssertionError(f"{kind}: the card's optimizer is not capturable")
-                return optimizer
-            params = [p for name in modules for p in getattr(model, name).parameters()]
-            return reassigning_adam(torch)(params, lr=cfg.learning_rate, eps=1e-8,
-                                           betas=(cfg.adam_beta1, cfg.adam_beta2),
-                                           capturable=True)
-
-        torch.backends.cudnn.deterministic = True
-        try:
-            runs, before, launches = lockstep_train_runs(torch, ps, base, kind, batches, flips,
-                                                         optimizer_for,
-                                                         ("repeat", "free", "graphs", "fault"))
-        finally:
-            torch.backends.cudnn.deterministic = False
-        noisy = noise_leaves(runs)
-        sizes = [t.numel() for t in before[0]["parameters"]]
-        noisy_share = sum(sizes[j] for j in noisy) / sum(sizes)
-        repeat, free, graphed, fault = (lockstep_gaps(runs[m], runs, before, noisy)
-                                        for m in ("repeat", "free", "graphs", "fault"))
-        bit_equal = all(v == 0.0 for v in graphed.values())
-        want_launches = (per_step * (GRAPH_STEPS - 1),) * 2
-
-        def text(gaps):
-            return ", ".join(f"{n} {gaps[n]:.3e}" for n in STEP_QUANTITIES)
-
-        print(f"[train-graphs] {kind} B={b} S={s} 256x256{' two-way' if kind == 'pairnet' else ''}"
-              f", {GRAPH_STEPS} steps from one seeded model, each from the eager run's state "
-              f"before it, capturable Adam, deterministic cuDNN; leaves left out as rounding "
-              f"noise {len(noisy)} of {len(sizes)} ({noisy_share:.2e} of the values): "
-              f"graphed against eager (largest relative L2 over the steps; parameters of the "
-              f"update) {text(graphed)} ({'bit-equal' if bit_equal else 'NOT bit-equal'}); the "
-              f"eager path against its own repeat {text(repeat)}; and free-running (each step "
-              f"from its own last state; parameters of one step's update) {text(free)}; planted "
-              f"fault (Adam state "
-              f"reassigned, not written in place) {text(fault)}; plane-sweep launches counted "
-              f"over {GRAPH_STEPS - 1} replays {launches['graphs'][0]}/{launches['graphs'][1]} "
-              f"(want {want_launches[0]}/{want_launches[1]}) ({lap(clock):.1f} s) | {card}",
-              flush=True)
-        if noisy_share > NOISE_SHARE:
-            raise AssertionError(f"{kind}: {noisy_share:.2e} of the values left out as noise")
-        if not train_gaps_within(graphed, repeat):
-            raise AssertionError(f"{kind}: the graphed step leaves the eager one by more than "
-                                 f"its limits (GRAPH_STEPS' comment): {graphed}")
-        if train_gaps_within(fault, repeat):
-            raise AssertionError(f"{kind}: the planted fault (reassigned Adam state) was not "
-                                 f"caught: {fault}")
-        if launches["graphs"] != want_launches:
-            raise AssertionError(f"{kind}: plane-sweep launches at the replays "
-                                 f"{launches['graphs']}, want {want_launches}")
-        del runs, before
-        paths = train_paths(kind, batches[0], flips[0], two_way=kind == "pairnet",
-                            **GRAPH_TIMING)["modes"]
-        g, e = paths["graphs"], paths["eager"]
-        print(f"[train-graphs] {kind} step median / p90 graphed {g['step_ms']['median']:.3f} / "
-              f"{g['step_ms']['p90']:.3f} ms, eager {e['step_ms']['median']:.3f} / "
-              f"{e['step_ms']['p90']:.3f} ms; host calls in one step graphed "
-              f"{g['host_launches_per_step']}, eager {e['host_launches_per_step']}; device idle "
-              f"share of the unprofiled median graphed {g['device_idle_share_unprofiled']:.1%}, "
-              f"eager {e['device_idle_share_unprofiled']:.1%}; first-pass peak graphed "
-              f"{g['first_pass_peak_mib']:.1f} MiB, eager {e['first_pass_peak_mib']:.1f} MiB; "
-              f"kept reserved graphed {g['kept_mib']:.1f} MiB, eager {e['kept_mib']:.1f} MiB "
-              f"({lap(clock):.1f} s) | {card}", flush=True)
-        host = g["host_launches_per_step"]
-        if host["cudaGraphLaunch"] != 1.0 or host["cudaLaunchKernel"] != 0.0:
-            raise AssertionError(f"{kind}: a graphed step is not one graph launch and copies: "
-                                 f"{g['host_api_calls_in_step']}")
-        report[kind] = {"bit_equal": bit_equal, "gaps": graphed, "eager_repeat_gaps": repeat,
-                        "eager_free_running_gaps": free, "fault_gaps": fault, "noise_leaves": len(noisy),
-                        "launches_at_replays": list(launches["graphs"]),
-                        **{mode: {k: paths[mode][k] for k in (
-                            "step_ms", "first_pass_peak_mib", "kept_mib",
-                            "host_launches_per_step", "device_idle_share_unprofiled",
-                            "device_busy_ms")} for mode in ("graphs", "eager")}}
+        label = (f"[train-graphs] {kind} B={b} S={s} 256x256"
+                 f"{' two-way' if kind == 'pairnet' else ''}")
+        report[kind] = check_lockstep(torch, ps, label, base, kind, batches, flips, modules,
+                                      cfg.learning_rate, ("repeat", "free", "graphs", "fault"),
+                                      per_step, card, clock)
+        del base
+        report[kind].update(timed_paths(torch, f"[train-graphs] {kind}", kind, batches[0],
+                                        flips[0], card, clock))
     return report
 
 
 def parallel_phase(torch, ps, card, clock):
     """[parallel]: NCCL at world size 1. ``dryrun_multichip(1)``, then one
     pairnet and one fusionnet step through the data-parallel path against
-    the plain step at the training shapes, and their times. Returns the
-    launches of one data-parallel step of each model and the step times."""
+    the plain step at the training shapes; the graphed data-parallel step
+    against the eager one by [train-graphs]' rules (``check_lockstep`` with
+    the group: its all-reduces inside the graph), both timed in turns.
+    Returns the launches of one data-parallel step of each model and the
+    graphed and eager numbers."""
     from dvmvs_tpu_torch.apps.dryrun_multichip import dryrun_multichip
     from dvmvs_tpu_torch.apps.run_training import make_model
     from dvmvs_tpu_torch.config import TrainConfig
@@ -1433,11 +1614,13 @@ def parallel_phase(torch, ps, card, clock):
     out = {}
     try:
         dry = dryrun_multichip(1, "cuda")
-        print(f"[parallel] NCCL group of 1 on {dev}; dryrun_multichip(1): train step loss "
+        print(f"[parallel] NCCL group of 1 on {dev}; dryrun_multichip(1): graphed train step loss "
               f"{dry['loss']:.4f}, sharded serving and two lockstep recurrent steps finite "
               f"({lap(clock):.1f} s)", flush=True)
-        for kind, s, b in (("pairnet", 2, PAIR_BATCH), ("fusionnet", 8, TB)):
-            batch = small_batch(torch, dev, seed=3, s=s, b=b, size=256)
+        for kind, s, b, per_step in (("pairnet", 2, PAIR_BATCH, 2), ("fusionnet", 8, TB, 7)):
+            batches = [small_batch(torch, dev, seed=3 + i, s=s, b=b, size=256)
+                       for i in range(GRAPH_STEPS)]
+            batch = batches[0]
             stages = tt.FUSIONNET_STAGES if kind == "fusionnet" else tt.PAIRNET_STAGES
             two_way = kind == "pairnet"
             plain = make_model(kind, TrainConfig(), dev, seed=0).train()
@@ -1478,29 +1661,23 @@ def parallel_phase(torch, ps, card, clock):
                     f"[parallel] {kind}: data-parallel step at world size 1 loss {l1.item()} vs "
                     f"{l0.item()} (repeat {lr.item()}), statistics differing {differ[:5]}, "
                     f"parameter gap {gap:.3e} (repeat {repeat_gap:.3e}), launches {fwd}/{bwd}")
-            # times: every module trainable, plain and data-parallel in turns
-            opts = {"plain": tt.make_optimizer(plain, stages[-1]),
-                    "dp": tt.make_optimizer(dp, stages[-1])}
-            times = {"plain": [], "dp": []}
-            for _ in range(PARALLEL_ROUNDS):
-                for name, model, g in (("plain", plain, None), ("dp", dp, group)):
-                    step(model, opts[name], g)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    for _ in range(PARALLEL_STEPS):
-                        step(model, opts[name], g)
-                    torch.cuda.synchronize()
-                    times[name].append((time.perf_counter() - t0) * 1e3 / PARALLEL_STEPS)
-            ms = {k: float(np.median(v)) for k, v in times.items()}
-            out[kind] = {"fwd": fwd, "bwd": bwd, "ms": ms}
             print(f"[parallel] {kind} B={b} S={s} 256x256: data-parallel step at world size 1 "
                   f"against the plain step: loss {l1.item():.6f} and {len(stats)} BatchNorm "
                   f"buffers bit for bit; updated parameters max |diff| {gap:.3e} (the plain "
-                  f"step against its own repeat: {repeat_gap:.3e}); "
-                  f"kernel launches of one step on a rank: forward {fwd}, backward {bwd}; step "
-                  f"median of {PARALLEL_ROUNDS} rounds of {PARALLEL_STEPS} (all modules "
-                  f"trainable): without a group {ms['plain']:.1f} ms, data-parallel at world "
-                  f"size 1 {ms['dp']:.1f} ms ({lap(clock):.1f} s) | {card}", flush=True)
+                  f"step against its own repeat: {repeat_gap:.3e}); kernel launches of one "
+                  f"step on a rank: forward {fwd}, backward {bwd} ({lap(clock):.1f} s) | {card}",
+                  flush=True)
+            del repeat, dp
+            # the graphed data-parallel step against the eager one
+            label = f"[parallel] {kind} B={b} S={s} 256x256 data-parallel graphed"
+            flips = [torch.tensor(f) for f in FLIPS]
+            lock = check_lockstep(torch, ps, label, plain, kind, batches, flips, stages[-1],
+                                  TrainConfig().learning_rate, ("repeat", "graphs", "fault"),
+                                  per_step, card, clock, group)
+            del plain
+            times = timed_paths(torch, f"[parallel] {kind} data-parallel", kind, batch, flips[0],
+                                card, clock, group)
+            out[kind] = {"fwd": fwd, "bwd": bwd, **lock, **times}
     finally:
         mesh.destroy()
     return out
@@ -1509,26 +1686,34 @@ def parallel_phase(torch, ps, card, clock):
 def parallel_bulk_phase(ps, tmp, card, clock):
     """[parallel-bulk]: run_testing --n-devices 1 --batch-size 8 on the
     [bulk] scenes against the plain batched run: the same files, equal
-    depths, and the forward kernel launched by the data-parallel run."""
+    depths, the forward kernel launched by the data-parallel run, and its
+    engine's steps graph replays (counted at ``StepGraph.run``)."""
+    from dvmvs_tpu_torch.apps import graphs as ag
     from dvmvs_tpu_torch.apps import run_testing as rt
 
     args = ["--data", tmp, "--dataset-name", BULK_DATASET, "--model", "pairnet",
             "--batch-size", str(BULK_BATCH), "--max-frames", str(BULK_BATCH)]
     rt.main(args + ["--output", os.path.join(tmp, "plain")])
     ps.launch_count = ps.backward_launch_count = 0
-    rt.main(args + ["--n-devices", "1", "--output", os.path.join(tmp, "dp")])
+    replays = []
+    real_run = ag.StepGraph.run
+    with patched(ag.StepGraph, "run", lambda self: (replays.append(self.name), real_run(self))[1]):
+        rt.main(args + ["--n-devices", "1", "--output", os.path.join(tmp, "dp")])
     fwd, bwd = ps.launch_count, ps.backward_launch_count
     files = sorted(os.listdir(os.path.join(tmp, "plain")))
-    if not files or files != sorted(os.listdir(os.path.join(tmp, "dp"))) or not fwd or bwd:
-        raise AssertionError(f"[parallel-bulk] files {files}, launches {fwd}/{bwd}")
+    if not files or files != sorted(os.listdir(os.path.join(tmp, "dp"))) or not fwd or bwd \
+            or "predict_pair_steps" not in replays:
+        raise AssertionError(f"[parallel-bulk] files {files}, launches {fwd}/{bwd}, graph "
+                             f"steps run {sorted(set(replays))}")
     for f in files:
         a, b = (np.load(os.path.join(tmp, d, f))["arr_0"] for d in ("plain", "dp"))
         if not np.array_equal(a, b):
             raise AssertionError(f"[parallel-bulk] {f} differs")
     print(f"[parallel-bulk] run_testing --n-devices 1 --batch-size {BULK_BATCH} (NCCL) on "
           f"{len(files) // 2} scenes: the plain batched run's {len(files)} files, depths and "
-          f"errors equal; forward kernel launches {fwd}, backward 0 ({lap(clock):.1f} s) | "
-          f"{card}", flush=True)
+          f"errors equal; forward kernel launches {fwd}, backward 0; graph steps run "
+          f"{len(replays)} ({', '.join(sorted(set(replays)))}) ({lap(clock):.1f} s) | {card}",
+          flush=True)
 
 
 def proxy_phase(card, clock, tmp):
@@ -1566,6 +1751,7 @@ def main():
     from dvmvs_tpu_torch.apps.profile_step import synthetic_stream
     from dvmvs_tpu_torch.apps.run_testing_online import predict_stream
     from dvmvs_tpu_torch.config import DepthConfig, TestConfig, TrainConfig
+    from dvmvs_tpu_torch.ops import cuda_build, dlt
     from dvmvs_tpu_torch.ops import plane_sweep as ps
     from dvmvs_tpu_torch.ops.sweep_measure import (SINGLE_LAUNCH_TIMER, TIMER, binned_share,
                                                    single_launch_ms, sweep_bound, sweep_case,
@@ -1585,7 +1771,7 @@ def main():
 
     # 2. build: one nvcc per source, all at once
     t0 = time.perf_counter()
-    logs = ps.build_kernels()
+    logs = cuda_build.load_all(ps.KERNELS + dlt.KERNELS)
     regs = {name: sorted({line.split("Used ")[1].split(",")[0] for line in log.splitlines()
                           if "Used " in line}) for name, log in logs.items()}
     print(f"[build] {', '.join(f'{n}.cu' for n in logs)} built and loaded in "
@@ -1884,6 +2070,8 @@ def main():
         baselines = baseline_phases(torch, ps, device, card, clock, tmp)
     # 12d. [baseline-graphs] the baselines' graphed predict against the eager one
     baseline_graphs = baseline_graphs_phase(torch, card, clock, baselines)
+    # 12e. [dlt] the DLT-solve kernel against its plain version, and its time
+    solve = dlt_phase(torch, card, clock, baselines)
 
     # 13. results: the forward at the online shape (its main path), the
     # backward at the training shape
@@ -1963,15 +2151,42 @@ def main():
         "single_launch_timer": SINGLE_LAUNCH_TIMER,
         "launches_parallel_step": {k: v["bwd"] for k, v in parallel.items()},
         "launches_real_data": real["bwd"],
+    }, {
+        "name": "dlt_solve",
+        "route": "cuda",
+        "source": "dvmvs_tpu_torch/csrc/dlt_solve.cu",
+        "replaces": "dvmvs_tpu/baselines/deltas.py:343",
+        "note": "replaces no TPU kernel: DELTAS's batched SVD (jnp.linalg.svd in "
+                "triangulate_dlt, compiled by XLA inside the model's jit), which "
+                "torch.linalg.svd cannot take inside a CUDA graph; max_abs_err in "
+                "metres over the points DELTAS keeps, against the float32 plain version "
+                "and (max_abs_err_float64) the same call in float64",
+        "shape": {"systems": solve["shape"][1], "rows": solve["shape"][2]},
+        "launches": baselines["deltas"]["dlt_launches"],
+        "launches_graphed_pass": baseline_graphs["deltas"]["dlt_solve_launches_graphed_pass"],
+        "max_abs_err": solve["max_abs_err"],
+        "max_abs_err_float64": solve["max_abs_err_float64"],
+        "ms": solve["ms"],
+        "plain_ms": solve["plain_ms"],
+        "bound_ms": solve["bound"]["bound_ms"],
+        "bound_by": solve["bound"]["bound_by"],
+        "library_ms": solve["library_ms"],
+        "share_of_bound": solve["bound"]["bound_ms"] / solve["ms"],
+        "timer": TIMER,
+        "ms_single_launch": solve["ms_single_launch"],
+        "plain_ms_single_launch": solve["plain_ms_single"],
+        "ms_in_graph": baseline_graphs["deltas"]["graphs"]["dlt_solve_ms"],
+        "gaps": {k: solve[k] for k in ("scene", "seeded")},
     }], "graphs": graphs, "baseline_graphs": {
         name: {k: v for k, v in r.items() if k in ("depth_gap", "bit_equal", "captured_steps",
-                                                   "plane_sweep_launches_graphed_pass")}
+                                                   "plane_sweep_launches_graphed_pass",
+                                                   "dlt_solve_launches_graphed_pass")}
         | {mode: {k: r[mode][k] for k in ("predict_ms", "first_pass_peak_mib", "kept_mib",
-                                          "host_launches_per_predict",
-                                          "host_launches_outside_graphs")}
+                                          "host_launches_per_predict", "dlt_solve_ms")}
            for mode in ("graphs", "eager")}
         for name, r in baseline_graphs.items()},
-        "parallel_step_ms": {k: v["ms"] for k, v in parallel.items()},
+        "parallel": {kind: {k: v for k, v in r.items() if k not in ("fwd", "bwd")}
+                     for kind, r in parallel.items()},
         "train_graphs": train_graphs,
         "real_data": {k: v for k, v in real.items() if k not in ("fwd", "bwd")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,8 +5,9 @@ At world size n, with B = n (one row a rank), S = 2 and 64x64 frames, each
 rank runs:
 
   1. one data-parallel fusionnet train step (``parallel/train.py``, every
-     module trainable), after which the parameters must be equal on every
-     rank;
+     module trainable), a CUDA graph replay on the card as ``run_training``
+     runs it (``GraphedTrainStep``), after which the parameters must be
+     equal on every rank;
   2. one sharded pairnet prediction step (``InferenceEngine.predict_batch``
      on its rows, gathered);
   3. two sharded lockstep fusionnet steps (``fusion_step_batch``), the
@@ -32,9 +33,9 @@ from dvmvs_tpu_torch.config import TestConfig, TrainConfig
 from dvmvs_tpu_torch.parallel import mesh
 from dvmvs_tpu_torch.parallel.train import (
     FUSIONNET_STAGES,
+    GraphedTrainStep,
     make_data_parallel,
     make_optimizer,
-    train_step,
 )
 
 S, H, W, V = 2, 64, 64, 2
@@ -97,7 +98,7 @@ def _dryrun(group, dev, n_devices: int) -> dict:
     model = make_model("fusionnet", TrainConfig(), dev, seed=0)
     make_data_parallel(model, group)
     optimizer = make_optimizer(model, FUSIONNET_STAGES[2])
-    loss = float(train_step(model, optimizer, batch, "fusionnet", group=group)["loss"])
+    loss = float(GraphedTrainStep(model, group=group).train(optimizer, batch)["loss"])
     if not np.isfinite(loss):
         raise AssertionError(f"non-finite loss {loss}")
     flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])

@@ -30,9 +30,10 @@ into the buffers it was given: a state reassigned instead is not seen by
 the next replay. A capture or replay that fails raises; nothing falls back
 to running the body eagerly.
 
-The plane-sweep wrappers count their launches in Python, which a replay
-does not run: the count a capture records is added back at every replay,
-and the capture's own (recorded, not launched) counts are taken away.
+The kernel wrappers (the plane sweep's forward and backward, the DLT
+solve) count their launches in Python, which a replay does not run: the
+count a capture records is added back at every replay, and the capture's
+own (recorded, not launched) counts are taken away.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from typing import Callable, Dict, Iterator, Sequence
 
 import torch
 
-from dvmvs_tpu_torch.ops import plane_sweep
+from dvmvs_tpu_torch.ops import dlt, plane_sweep
 
 # warm-up runs before a capture, on a side stream (PyTorch's graph docs):
 # they build the kernels, the cuBLAS / cuDNN handles and workspaces and the
@@ -83,7 +84,11 @@ def fill(buffer: torch.Tensor, value: torch.Tensor):
 
 
 def _launch_counts():
-    return plane_sweep.launch_count, plane_sweep.backward_launch_count
+    return plane_sweep.launch_count, plane_sweep.backward_launch_count, dlt.launch_count
+
+
+def _set_launch_counts(counts):
+    plane_sweep.launch_count, plane_sweep.backward_launch_count, dlt.launch_count = counts
 
 
 class StepGraph:
@@ -109,7 +114,8 @@ class StepGraph:
         self.device = next(leaves(args)).device
         self.graph = None
         self.outputs = None
-        self.launches = (0, 0)  # plane-sweep (forward, backward) launches inside the graph
+        # kernel launches inside the graph: plane sweep forward, backward, DLT solve
+        self.launches = (0, 0, 0)
 
     def run(self):
         """One step; returns the output buffers (valid until the next run)."""
@@ -127,8 +133,7 @@ class StepGraph:
         except RuntimeError as err:
             raise RuntimeError(f"replay of the CUDA graph of {self.owner} step {self.name!r} "
                                f"failed ({self.eager} is the eager path)") from err
-        plane_sweep.launch_count += self.launches[0]
-        plane_sweep.backward_launch_count += self.launches[1]
+        _set_launch_counts(tuple(a + b for a, b in zip(_launch_counts(), self.launches)))
         return self.outputs
 
     def _capture(self):
@@ -160,5 +165,5 @@ class StepGraph:
                 f"eagerly instead ({self.eager} is the eager path)") from err
         finally:
             recorded = tuple(a - b for a, b in zip(_launch_counts(), before))
-            plane_sweep.launch_count, plane_sweep.backward_launch_count = before
+            _set_launch_counts(before)
         self.graph, self.outputs, self.launches = graph, outputs, recorded

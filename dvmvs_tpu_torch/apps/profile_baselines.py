@@ -17,9 +17,11 @@ and the device memory it keeps reserved after the pass (``kept_mib``,
 measured after ``torch.cuda.empty_cache()``: the graphs' private pools,
 which live as long as the estimator); then ``--rounds`` passes of each in
 turns, the host wall time of every ``predict`` (median, p90); the depth gap
-between the paths; the plane-sweep launches of a graphed pass; and from a
-``torch.profiler`` trace of one more pass each, the host CUDA API calls
-inside one ``predict`` (``cudaGraphLaunch``, kernel launches, copies).
+between the paths; the plane-sweep and DLT-solve launches of a graphed pass;
+and from a ``torch.profiler`` trace of one more pass each, the host CUDA API
+calls inside one ``predict`` (``cudaGraphLaunch``, kernel launches, copies)
+and, for DELTAS, the device time of its ``csrc/dlt_solve.cu`` kernel a
+``predict`` (inside the graph on the graphed path).
 
 Prints one JSON object, also written to ``--out``.
 
@@ -30,7 +32,6 @@ Run: ``python -m dvmvs_tpu_torch.apps.profile_baselines [--out FILE]
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import subprocess
 import time
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 import dvmvs_tpu_torch.apps.run_testing_baseline  # noqa: F401  (registry population)
-from dvmvs_tpu_torch.baselines import BASELINE_REGISTRY, deltas
+from dvmvs_tpu_torch.baselines import BASELINE_REGISTRY
 from dvmvs_tpu_torch.baselines.deltas import (
     BORDER,
     sample_descriptors,
@@ -49,10 +50,10 @@ from dvmvs_tpu_torch.baselines.deltas import (
 )
 from dvmvs_tpu_torch.baselines.dpsnet import inverse_warp
 from dvmvs_tpu_torch.baselines.mvdepthnet import l1_cost_volume, upload_views
-from dvmvs_tpu_torch.ops import plane_sweep
+from dvmvs_tpu_torch.ops import dlt, plane_sweep
 
 NAMES = ("mvdepthnet", "gpmvs", "dpsnet", "deltas")
-PREDICT_RANGE, SVD_RANGE = "baseline.predict", "baseline.eager_svd"
+PREDICT_RANGE = "baseline.predict"
 
 
 def median_ms(fn, reps: int) -> float:
@@ -189,33 +190,15 @@ def depth_gap(got, want) -> float:
     return max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(got, want))
 
 
-@contextlib.contextmanager
-def svd_range():
-    """DELTAS's SVD (``deltas.dlt_solve``, run between its two graphs)
-    inside a profiler range of its own, ``SVD_RANGE``."""
-    real = deltas.dlt_solve
-
-    def ranged_svd(A):
-        with torch.profiler.record_function(SVD_RANGE):
-            return real(A)
-
-    deltas.dlt_solve = ranged_svd
-    try:
-        yield
-    finally:
-        deltas.dlt_solve = real
-
-
 def compare_paths(name: str, keyframes, rounds: int) -> dict:
     """``predict`` of a graphed and an eager estimator (seed 0) over
     ``keyframes`` (``predict``'s argument tuples; module doc), the
     estimators reset before each pass. The depth gap is taken on
     the depths each path reads back (DELTAS's before its clip: with seeded
-    weights the clipped depth is one constant); the host calls of DELTAS's
-    SVD, between its two graphs, are also counted apart
-    (``host_launches_outside_graphs``)."""
-    from dvmvs_tpu_torch.apps.profile_step import (api_calls, launches_per_call, ranged,
-                                                   trace_events)
+    weights the clipped depth is one constant); DELTAS's ``dlt_solve``
+    kernel's device time a ``predict`` from the trace (``dlt_solve_ms``)."""
+    from dvmvs_tpu_torch.apps.profile_step import (api_calls, kernel_ms_by_prefix,
+                                                   launches_per_call, ranged, trace_events)
 
     ests = {mode: BASELINE_REGISTRY[name](device="cuda", seed=0, graphs=mode == "graphs")
             for mode in ("eager", "graphs")}
@@ -250,9 +233,9 @@ def compare_paths(name: str, keyframes, rounds: int) -> dict:
                 t0 = time.perf_counter()
                 est.predict(*kf)
                 times[mode].append((time.perf_counter() - t0) * 1e3)
-    plane_sweep.launch_count = plane_sweep.backward_launch_count = 0
+    plane_sweep.launch_count = plane_sweep.backward_launch_count = dlt.launch_count = 0
     run("graphs")
-    launches = (plane_sweep.launch_count, plane_sweep.backward_launch_count)
+    launches = (plane_sweep.launch_count, plane_sweep.backward_launch_count, dlt.launch_count)
     run("eager")
     report = {
         "keyframes": len(keyframes), "rounds": rounds,
@@ -261,11 +244,12 @@ def compare_paths(name: str, keyframes, rounds: int) -> dict:
             raw["graphs"] + returned["graphs"], raw["eager"] + returned["eager"])),
         "plane_sweep_launches_graphed_pass": launches[0],
         "backward_launches_graphed_pass": launches[1],
+        "dlt_solve_launches_graphed_pass": launches[2],
         "captured_steps": len(ests["graphs"].step_graphs)}
     for mode, est in ests.items():
         ranged(est, ("predict",), prefix="baseline.")
         try:
-            with svd_range(), torch.profiler.profile(
+            with torch.profiler.profile(
                     activities=[torch.profiler.ProfilerActivity.CPU,
                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
                 run(mode)
@@ -273,16 +257,15 @@ def compare_paths(name: str, keyframes, rounds: int) -> dict:
         finally:
             del est.predict
         events = trace_events(prof)
-        calls, svd = api_calls(events, PREDICT_RANGE), api_calls(events, SVD_RANGE)
+        calls = api_calls(events, PREDICT_RANGE)
         t = np.asarray(times[mode])
         report[mode] = {
             "predict_ms": {"median": float(np.median(t)), "p90": float(np.percentile(t, 90)),
                            "n": int(t.size)},
             "first_pass_peak_mib": peak[mode], "kept_mib": kept[mode],
             "host_launches_per_predict": launches_per_call(calls),
-            "host_launches_outside_graphs": {
-                k: v * max(svd["ranges"], 1) / max(calls["ranges"], 1)
-                for k, v in launches_per_call(svd).items()},
+            "dlt_solve_ms": kernel_ms_by_prefix(events, {"k": "dlt_solve_kernel"})["k"]
+            / len(keyframes),
             "host_api_calls_in_predict": calls}
     return report
 

@@ -311,7 +311,7 @@ def trace_events(prof) -> list:
 
 def train_paths(model_kind: str, batch: dict, flip_mask=None, two_way: bool = None,
                 n_warmup: int = N_WARMUP_STEPS, n_timed: int = N_TIMED_STEPS,
-                n_rounds: int = N_ROUNDS, seed: int = 0) -> dict:
+                n_rounds: int = N_ROUNDS, seed: int = 0, group=None) -> dict:
     """The training step (every module trainable, a capturable Adam) on
     ``batch`` (device tensors) through the graph
     (``parallel/train.py::GraphedTrainStep``, one replay a step) and eagerly
@@ -325,7 +325,9 @@ def train_paths(model_kind: str, batch: dict, flip_mask=None, two_way: bool = No
     rounds in turns; from one profiled step the host CUDA API calls inside
     it (``cudaGraphLaunch``, kernel launches, copies), the device's busy
     time, its idle share of the profiled step and of the unprofiled median,
-    and the device time of the plane-sweep kernels."""
+    and the device time of the plane-sweep kernels. With ``group`` both
+    paths take the data-parallel step (``make_data_parallel`` models,
+    ``batch`` this rank's rows)."""
     import copy
 
     import torch
@@ -334,7 +336,8 @@ def train_paths(model_kind: str, batch: dict, flip_mask=None, two_way: bool = No
     from dvmvs_tpu_torch.apps.run_training import make_model
     from dvmvs_tpu_torch.config import TrainConfig
     from dvmvs_tpu_torch.parallel.train import (FUSIONNET_STAGES, PAIRNET_STAGES,
-                                                GraphedTrainStep, make_optimizer, train_step)
+                                                GraphedTrainStep, make_data_parallel,
+                                                make_optimizer, train_step)
 
     cfg = TrainConfig()
     fusion = model_kind == "fusionnet"
@@ -350,13 +353,15 @@ def train_paths(model_kind: str, batch: dict, flip_mask=None, two_way: bool = No
         held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
         torch.cuda.reset_peak_memory_stats()
         model = copy.deepcopy(base)
+        if group is not None:
+            make_data_parallel(model, group)
         optimizer = make_optimizer(model, stages[-1], cfg.learning_rate)
         if mode == "graphs":
-            graphed = GraphedTrainStep(model, model_kind, cfg.loss_type, two_way)
+            graphed = GraphedTrainStep(model, model_kind, cfg.loss_type, two_way, group)
             step = functools.partial(graphed.train, optimizer, batch, flip_mask)
         else:
             step = functools.partial(train_step, model, optimizer, batch, model_kind,
-                                     cfg.loss_type, two_way, flip_mask.tolist())
+                                     cfg.loss_type, two_way, flip_mask.tolist(), group)
         for _ in range(n_warmup):
             step()
         torch.cuda.synchronize()

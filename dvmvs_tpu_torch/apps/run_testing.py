@@ -35,8 +35,10 @@ one process a device: ``torchrun --nproc-per-node N -m
 dvmvs_tpu_torch.apps.run_testing --n-devices N ...``): each rank runs its
 rows of every pairnet batch, or its scenes of every lockstep group, and the
 results are gathered; rank 0 writes the same files as one process does.
-``--scan-chunk`` is for one device, as in the JAX driver, and with more
-than one device the steps run eagerly, one a readback.
+Each rank's engine runs its steps as graph replays, as on one device (the
+JAX driver's jitted programs on sharded inputs); the gathers run between
+them. ``--scan-chunk`` is for one device, as in the JAX driver: with more
+than one device each step is a replay and a readback.
 """
 
 from __future__ import annotations
@@ -503,8 +505,7 @@ def main(argv: Optional[Sequence[str]] = None):
 
 def _evaluate(args, cfg: TestConfig, device, group):
     lead = mesh.rank(group) == 0
-    engine = InferenceEngine(args.model, cfg, device=device,
-                             graphs=mesh.world_size(group) == 1)
+    engine = InferenceEngine(args.model, cfg, device=device)
     if args.checkpoint:
         load_checkpoint(args.checkpoint, engine.model)
 

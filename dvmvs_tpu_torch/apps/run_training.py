@@ -30,13 +30,15 @@ uploads its rows; the step is that of the global batch
 checkpoints, ``metrics.jsonl`` and the resume state. ``--n-devices 1``
 runs the data-parallel path in one process.
 
-On one device each optimizer step is one CUDA graph replay and each
-validation step another (``parallel/train.py::GraphedTrainStep``), the JAX
-package's jitted and donated train step and jitted eval step; on the CPU the
-same bodies run on static buffers. Each stage's new optimizer means a new
-capture, and the previous stage's graph and its pool are dropped first.
-``--no-graphs`` is the eager path; the data-parallel path is always eager.
-A capture or replay that fails raises: nothing carries on eagerly.
+Each optimizer step is one CUDA graph replay and each validation step
+another (``parallel/train.py::GraphedTrainStep``), the JAX package's jitted
+and donated train step and jitted eval step, on one device and on each rank
+of a data-parallel group (the collectives inside the graphs, as the JAX
+package jits its steps over the mesh); on the CPU the same bodies run on
+static buffers. Each stage's new optimizer means a new capture, and the
+previous stage's graph and its pool are dropped first. ``--no-graphs`` is
+the eager path. A capture or replay that fails raises: nothing carries on
+eagerly.
 """
 
 from __future__ import annotations
@@ -242,7 +244,7 @@ def main(argv=None) -> str:
                     help="crawler worker processes")
     ap.add_argument("--no-graphs", action="store_true",
                     help="run each train and validation step eagerly instead of as a CUDA "
-                         "graph replay (the data-parallel path always runs eagerly)")
+                         "graph replay")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises if there is no card) or cpu")
     ap.add_argument("--n-devices", type=int, default=None,
@@ -324,8 +326,8 @@ def _train(args, kind: str, cfg: TrainConfig, device, freeze_bn: bool, group) ->
     stages = FUSIONNET_STAGES if kind == "fusionnet" else PAIRNET_STAGES
     two_way = kind == "pairnet" and cfg.predict_two_way
     steps = None
-    if not args.no_graphs and group is None:
-        steps = GraphedTrainStep(model, kind, cfg.loss_type, two_way)
+    if not args.no_graphs:
+        steps = GraphedTrainStep(model, kind, cfg.loss_type, two_way, group)
     flip_generator = torch.Generator().manual_seed(args.seed)
     print_freq = cfg.print_frequency
     if args.max_steps is not None and args.print_frequency is None:

@@ -11,7 +11,7 @@ dvmvs/baselines/deltas/), sparse-then-dense depth in three stages:
      and maximum depth), descriptor correlation, a BatchNorm'd match map,
      confidence = sigmoid(its global max) gated by a valid segment, a 2-D
      soft-argmax mapped back through the ROI, then confidence-weighted
-     linear DLT triangulation by SVD.
+     linear DLT triangulation by SVD (``ops/dlt.py``).
   3. Densification: the sparse depth through a narrow 1-channel ResNet-50
      trunk, its skips concatenated with the image trunk's, Gudi
      up-projections, a dense-cascade ASPP at 1/8 and 1x1 heads; the final
@@ -30,7 +30,6 @@ inference never applies them, so load ``state_dict_tri`` with
 
 from __future__ import annotations
 
-import functools
 from typing import List, Optional
 
 import numpy as np
@@ -41,6 +40,7 @@ import torch.nn.functional as F
 from dvmvs_tpu_torch.baselines.registry import register_baseline
 from dvmvs_tpu_torch.baselines.steps import GraphedEstimator, relative_inputs, relative_views
 from dvmvs_tpu_torch.models.layers import BN_EPS, BN_MOMENTUM, BatchNorm2d, seeded_model
+from dvmvs_tpu_torch.ops import dlt
 from dvmvs_tpu_torch.ops.sampling import grid_sample, resize_bilinear_align_corners
 
 N_KEYPOINTS = 512
@@ -316,10 +316,11 @@ def dlt_system(proj_matrices, points, confidences):
 
 
 def dlt_solve(A):
-    """The right singular vectors (B, Kn, 4, 4) of the DLT systems. The SVD
-    checks its convergence on the host, so it cannot be captured: on the
-    card DELTAS runs it between its two graphs."""
-    return torch.linalg.svd(A, full_matrices=False)[2]
+    """The right singular vectors (B, Kn, 4, 4) of the DLT systems
+    (``ops/dlt.py``): on the card the kernel ``csrc/dlt_solve.cu``, which
+    syncs nothing with the host, so DELTAS's forward is one CUDA graph; on
+    the CPU ``torch.linalg.svd``."""
+    return dlt.dlt_solve(A)
 
 
 def dlt_points(Vh):
@@ -546,7 +547,7 @@ class DeltasModel(nn.Module):
 
     def front(self, ref_image, meas_images, rel_poses, K, view_mask=None,
               keypoints: Optional[torch.Tensor] = None) -> dict:
-        """``stages`` up to the SVD: detection, description and matching
+        """``stages`` up to the DLT solve: detection, description and matching
         (scores, keypoints, kp_scores, range_mask, the DLT systems as
         ``system`` and the image trunk's ``image_skips``)."""
         B, V = meas_images.shape[:2]
@@ -568,7 +569,7 @@ class DeltasModel(nn.Module):
                 "range_mask": range_mask, "image_skips": image_skips}
 
     def back(self, Vh, keypoints, range_mask, image_skips, height: int, width: int) -> dict:
-        """``stages`` after the SVD: the points from the singular vectors
+        """``stages`` after the DLT solve: the points from the singular vectors
         ``Vh`` (``dlt_solve``), the sparse depth at the keypoints, and the
         densifier's depth (B, H, W)."""
         H, W = height, width
@@ -606,10 +607,9 @@ class Deltas(GraphedEstimator):
                  device="cuda", graphs: bool = True):
         """Runs on the card unless ``device="cpu"``; weights from a generator
         seeded with ``seed``, or ``state_dict`` (the model's keys).
-        ``graphs``: ``predict`` as two CUDA graph replays on the card, the
-        detector and matcher up to the DLT systems, then the densifier, with
-        the SVD between them (``dlt_solve``: it cannot be captured); else
-        eagerly."""
+        ``graphs``: ``predict`` as one CUDA graph replay on the card
+        (detector and matcher up to the DLT systems, their solve by the
+        ``dlt_solve`` kernel, the densifier); else eagerly."""
         self.V = n_measurement_frames
         self.model = seeded_model(DeltasModel(), seed, device, state_dict)
         self.device = next(self.model.parameters()).device
@@ -621,23 +621,18 @@ class Deltas(GraphedEstimator):
         host = relative_inputs(self.V, ref_image, meas_images, ref_pose, meas_poses, K)
         return relative_views(**{k: self._fresh(v) for k, v in host.items()})
 
-    def _front_body(self, **inputs):
+    def _body(self, **inputs):
+        """The whole forward: ``front``, the DLT solve, ``back`` -> depth."""
+        height, width = inputs["ref"].shape[:2]
         front = self.model.front(*relative_views(**inputs))
-        return {k: front[k] for k in ("system", "keypoints", "range_mask", "image_skips")}
-
-    def _back_body(self, Vh, keypoints, range_mask, image_skips, height, width):
-        return self.model.back(Vh, keypoints, range_mask, image_skips, height, width)["depth"]
+        return self.model.back(dlt_solve(front["system"]), front["keypoints"],
+                               front["range_mask"], front["image_skips"], height, width)["depth"]
 
     @torch.inference_mode()
     def predict(self, ref_image, meas_images: List[np.ndarray], ref_pose, meas_poses,
                 K) -> np.ndarray:
         inputs = relative_inputs(self.V, ref_image, meas_images, ref_pose, meas_poses, K)
-        front = self._step("front", self._front_body, inputs)
-        height, width = np.shape(ref_image)[:2]
-        back = functools.partial(self._back_body, height=height, width=width)
-        depth = self._step("back", back, {"Vh": dlt_solve(front["system"])},
-                           fixed={k: front[k] for k in ("keypoints", "range_mask",
-                                                        "image_skips")})
+        depth = self._step("forward", self._body, inputs)
         # the reference feeds the raw output to the metrics; the consumers
         # here (TSDF, inverse-depth metrics) need positive depth, so clamp to
         # the model's range

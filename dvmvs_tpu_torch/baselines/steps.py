@@ -17,9 +17,9 @@ outputs. ``GraphedEstimator._step`` runs a body one of two ways:
 
 A step's ``fixed`` tensors (an earlier step's output buffers) are read in
 place, so the step is keyed on their addresses: GP-MVS's decoder reads the
-encoder graph's skips and DELTAS's densifier the detector graph's skips on
-the device. Both graphs run on one stream, so the first graph's next replay
-cannot overwrite them before the second has read them. What leaves for the
+encoder graph's skips on the device. Both graphs run on one stream, so the
+first graph's next replay cannot overwrite them before the second has read
+them. What leaves for the
 host is copied (``_readback``): on the CPU ``.cpu()`` of a buffer would
 return the buffer itself. The buffers are made inside ``predict``'s
 inference mode and written only there.

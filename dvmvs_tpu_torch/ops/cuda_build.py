@@ -15,6 +15,7 @@ it, to time beside it) in a directory of its own.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -110,7 +111,22 @@ def build(kernel) -> tuple[Path, str]:
     return build_all([kernel])[kernel]
 
 
-def load(kernel) -> ctypes.CDLL:
-    """Build (if needed) and load a kernel's library."""
-    lib, _ = build(kernel)
+@functools.lru_cache(maxsize=None)
+def _open(lib: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
+
+
+def load(kernel) -> ctypes.CDLL:
+    """Build (if needed) and load a kernel's library, once per process."""
+    lib, _ = build(kernel)
+    return _open(lib)
+
+
+def load_all(kernels) -> dict:
+    """Build (if needed, ``build_all``: all sources at once) and load every
+    kernel of ``kernels``; ``load`` then finds them loaded. Returns the
+    compiler's output by kernel ("" if cached)."""
+    built = build_all(kernels)
+    for lib, _ in built.values():
+        _open(lib)
+    return {kernel: log for kernel, (_, log) in built.items()}

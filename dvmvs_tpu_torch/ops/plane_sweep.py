@@ -146,15 +146,6 @@ def _forward_launches(V: int) -> int:
     return fn(V)
 
 
-def build_kernels() -> dict:
-    """Compile (if needed, all sources at once) and load the CUDA kernels;
-    returns nvcc's output by kernel name."""
-    logs = {name: log for name, (_, log) in cuda_build.build_all(KERNELS).items()}
-    for name in KERNELS:
-        _entry(name)
-    return logs
-
-
 def _check(ref, meas, mats, weights):
     tensors = {"ref": ref, "meas": meas, "mats": mats, "weights": weights}
     for name, t in tensors.items():

@@ -1,10 +1,11 @@
-"""Inputs, bound and timers for measuring the plane-sweep kernels on a GPU.
+"""Inputs, bounds and timers for measuring the port's kernels on a GPU.
 
-Shared by ``apps/bench_plane_sweep.py``, ``chip_smoke.py`` and the card
-tests: seeded sweep inputs at a given shape (``sweep_case``), the least time
-the card could take for a call (``sweep_bound``), the share of the backward
-kernel's chunk steps whose d_meas it bins (``binned_share``), and two
-CUDA-event timers:
+Shared by ``apps/bench_plane_sweep.py``, ``chip_smoke.py`` and the tests:
+seeded sweep inputs at a given shape (``sweep_case``), the least time the
+card could take for a call (``sweep_bound``), the share of the backward
+kernel's chunk steps whose d_meas it bins (``binned_share``), seeded
+triangulation inputs and the DLT solve's bound (``dlt_case``,
+``dlt_bound``), and two CUDA-event timers:
 ``time_ms`` (calls queued behind a spin kernel, so a kernel's time excludes
 the host's launch overhead) and ``single_launch_ms`` (each call timed alone
 as the host issues it, which includes that overhead where it is longer than
@@ -27,6 +28,13 @@ OTHER_VIEW = ((1, 2, 0.5), (0.1, 0.02, 0.0))
 # NVIDIA H100 SXM5 data sheet, dense: HBM3 bytes/s, float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12  # the same data sheet: float64 outside the tensor cores
+# float64 flops of the least DLT solve (dlt_bound), counted as in
+# csrc/dlt_solve.cu: a non-zero row through the Givens QR (per column k a
+# hypot, two divisions and 6 a column from k on); a check of the six column
+# pairs that rotates none (three 4-long dot products and the test each); the
+# norms and ranks
+DLT_ROW_FLOPS, DLT_CHECK_FLOPS, DLT_TAIL_FLOPS = 84, 6 * 28, 80
 # flops per channel of one in-range (pixel, plane, view) sample: forward, 4
 # FMA to interpolate and 1 for the dot; backward, 4 FMA into d_ref, 4
 # multiplies and 4 atomic adds into d_meas
@@ -167,6 +175,64 @@ def time_ms(fn, n_warmup=5, n=30, reps=10):
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
+
+
+def dlt_case(seed: int = 0, B: int = 4, Kn: int = 512, V: int = 3, depths=(0.5, 10.0),
+             noise: float = 0.25, baseline: float = 0.1):
+    """Seeded inputs of ``baselines/deltas.py::triangulate_dlt`` at DELTAS's
+    320x240 (K with a 240 px focal length), NumPy float32: proj (B, V, 3, 4),
+    view 0 the reference camera K[I|0] and the others turned by about 3
+    degrees and moved by about ``baseline`` m; points (B, Kn, V, 2), the
+    reference's keypoints uniform over the image and their projections at
+    log-uniform ``depths`` (m) with ``noise`` px of Gaussian noise in the
+    other views; confidences (B, Kn, V), 1 for the reference and 0.3-1
+    otherwise. By batch element, b % 4: 0 as above; 1 the last view masked
+    (confidence 0: zero rows, as a masked measurement frame); 2 the last view
+    masked and view 1 at 0.001 (a null epipolar segment's confidence: the
+    system is near rank-deficient); 3 noise-free (an exactly consistent
+    system, its smallest singular value about 0). Views are masked only
+    where V >= 3, so that the reference and one view remain, as in DELTAS."""
+    rs = np.random.RandomState(seed)
+    W, H, f = 320, 240, 240.0
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]])
+    proj = np.zeros((B, V, 3, 4))
+    points = np.zeros((B, Kn, V, 2))
+    conf = np.ones((B, Kn, V))
+    for b in range(B):
+        cams = [np.eye(3, 4)]
+        for _ in range(V - 1):
+            R = pose(*rs.randn(3) * 3.0, (0, 0, 0))[:3, :3]
+            cams.append(np.c_[R, rs.randn(3) * baseline])
+        proj[b] = np.stack([K @ c for c in cams])
+        uv = np.c_[rs.uniform(0, W, Kn), rs.uniform(0, H, Kn)]
+        z = np.exp(rs.uniform(np.log(depths[0]), np.log(depths[1]), Kn))
+        X = np.c_[(uv - K[:2, 2]) / f * z[:, None], z, np.ones(Kn)]
+        points[b, :, 0] = uv
+        for v in range(1, V):
+            x = X @ proj[b, v].T
+            points[b, :, v] = x[:, :2] / x[:, 2:3] + rs.randn(Kn, 2) * noise * (b % 4 != 3)
+            conf[b, :, v] = rs.uniform(0.3, 1.0, Kn)
+        if b % 4 in (1, 2) and V >= 3:
+            conf[b, :, V - 1] = 0.0
+        if b % 4 == 2 and V >= 3:
+            conf[b, :, 1] = 0.001
+    return proj.astype(np.float32), points.astype(np.float32), conf.astype(np.float32)
+
+
+def dlt_bound(A) -> dict:
+    """The least time of one DLT-solve call on the systems A (..., R, 4):
+    A read once and Vh written once over the HBM rate, and the float64
+    flops that any solve of these systems needs, whatever its sweeps, over
+    the float64 rate: reducing their non-zero rows to a 4x4 triangle, one
+    pass over the triangle's six column pairs that finds them orthogonal,
+    and the column norms and ordering."""
+    n = A.numel() // (A.shape[-2] * 4)
+    rows = int((A != 0).any(dim=-1).sum().item())
+    flops = rows * DLT_ROW_FLOPS + n * (DLT_CHECK_FLOPS + DLT_TAIL_FLOPS)
+    n_bytes = 4 * (A.numel() + n * 16)
+    byte_ms, op_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F64_FLOPS * 1e3
+    return {"bound_ms": max(byte_ms, op_ms), "bound_by": "bytes" if byte_ms >= op_ms else
+            "operations", "bytes": n_bytes, "flops": flops}
 
 
 def single_launch_ms(fn, n_warmup=5, n=30):

@@ -37,7 +37,23 @@ the first step, so the capture sees them at fixed addresses and the warm-up
 runs before it can be undone. ``model.zero_grad(set_to_none=True)`` at the
 top of the step runs on the card only while the graph is captured: the
 captured backward allocates every ``.grad`` from the graph's pool and each
-replay overwrites it. The data-parallel path (any ``group``) stays eager.
+replay overwrites it.
+
+With a ``group`` the graphs hold the step's collectives too: the forward's
+``SyncBatchNorm2d`` all-reduces and their backward ones, the loss's global
+valid counts, the gradients' sum and the metrics' sum (NCCL kernels on the
+stream, captured like any other; on the CPU, gloo has no capture and the
+bodies run on the static buffers). What that needs: the NCCL communicator
+exists before the capture (``make_data_parallel``'s broadcast makes it, and
+the warm-up runs every collective of the step); every rank captures and
+replays the same graphs in the same order, which holds because every rank
+takes the same steps on batches of one shape (``run_training`` draws the
+same global batches, drops the last partial one and cuts equal rows); and
+the gradients live in one flat buffer that outlives the graph
+(``flat_gradients``): the backward adds into its views and one all-reduce
+sums it in place, so nothing the update reads is allocated per step.
+``broadcast_state`` writes in place, so a resume state broadcast after a
+capture reaches the graph.
 """
 
 from __future__ import annotations
@@ -114,7 +130,9 @@ def make_data_parallel(model, group):
 
 def broadcast_state(model, group, optimizer=None):
     """Broadcast rank 0's parameters, buffers and the optimizer's state
-    tensors on the model's device (Adam's step counts stay on the host)."""
+    tensors on the model's device (the default Adam's step counts stay on
+    the host), each in place, so a graph captured before it reads the
+    result."""
     src = dist.get_global_rank(group, 0)
     for t in model.state_dict().values():
         dist.broadcast(t, src, group=group)
@@ -126,17 +144,37 @@ def broadcast_state(model, group, optimizer=None):
                     dist.broadcast(v, src, group=group)
 
 
-def all_reduce_gradients(model, group):
-    """Sum every parameter's gradient over the group (one all-reduce of one
-    flat buffer; a missing gradient counts as zero)."""
+def flat_gradients(model) -> torch.Tensor:
+    """The one flat buffer that every parameter's gradient is a view of, in
+    parameter order. Where the gradients are not such views (the first
+    step, or after ``zero_grad(set_to_none=True)``), a new buffer is made
+    from them (a missing gradient as zeros) and they are rebound to it;
+    after that the backward adds into the views in place, so the buffer
+    lives as long as the gradients do."""
     params = list(model.parameters())
+    flat = params[0].grad._base if params[0].grad is not None else None
+    offset = 0
+    for p in params:
+        if flat is None or p.grad is None or p.grad._base is not flat \
+                or p.grad.storage_offset() != offset:
+            flat = None
+            break
+        offset += p.numel()
+    if flat is not None and offset == flat.numel():
+        return flat
     flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
                       for p in params])
-    dist.all_reduce(flat, group=group)
     offset = 0
     for p in params:
         p.grad = flat[offset:offset + p.numel()].view_as(p)
         offset += p.numel()
+    return flat
+
+
+def all_reduce_gradients(model, group):
+    """Sum every parameter's gradient over the group in place: one
+    all-reduce of ``flat_gradients`` (a missing gradient counts as zero)."""
+    dist.all_reduce(flat_gradients(model), group=group)
 
 
 def _sum_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
@@ -189,9 +227,14 @@ def train_step(model, optimizer, batch, kind: str = "fusionnet", loss_type: str 
     ``optimizer`` updates its stage's. Returns the metrics as 0-dim device
     tensors (no host synchronisation). Without a group this is also the body
     of the graphed step (module doc): ``flip_mask`` may then be a device
-    bool tensor, one flag per pairnet direction."""
+    bool tensor, one flag per pairnet direction. With ``group`` the
+    gradients are zeroed in their flat buffer (``flat_gradients``) and the
+    backward adds into it; the values are those of fresh gradients."""
     batch = decode_wire_batch(batch)
-    model.zero_grad(set_to_none=True)  # frozen modules' gradients too
+    if group is None:
+        model.zero_grad(set_to_none=True)  # frozen modules' gradients too
+    else:
+        flat_gradients(model).zero_()
     if kind == "fusionnet":
         loss, metrics = fusionnet_loss_fn(model, batch, loss_type, group)
     else:
@@ -222,7 +265,9 @@ class GraphedTrainStep:
     """``train_step`` and ``eval_step`` of one model, each run as an
     ``apps/graphs.py::StepGraph`` on static buffers (module doc): on the
     card one graph replay a step, on the CPU the same body on the same
-    buffers without capture.
+    buffers without capture. With ``group`` (a model made by
+    ``make_data_parallel``) the steps are the data-parallel ones, their
+    collectives inside the graphs.
 
     A graph is keyed on its step, the train or eval mode of every module
     (read when the step is asked for, so a mode changed after a capture
@@ -239,8 +284,9 @@ class GraphedTrainStep:
     replay that fails raises; nothing runs eagerly instead."""
 
     def __init__(self, model, kind: str = "fusionnet", loss_type: str = "L1-inv",
-                 two_way: bool = False):
+                 two_way: bool = False, group=None):
         self.model, self.kind, self.loss_type, self.two_way = model, kind, loss_type, two_way
+        self.group = group
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.graphs: Dict[tuple, StepGraph] = {}
 
@@ -278,15 +324,17 @@ class GraphedTrainStep:
             state = [*self.model.parameters(), *self.model.buffers()]
             if name == "train":
                 state += init_optimizer_state(self.optimizer)
+                if self.group is not None:  # made here, on this stream, as the Adam state
+                    flat_gradients(self.model)
                 if self.kind != "fusionnet":
                     args["flip_mask"] = torch.zeros(2 if self.two_way else 1, dtype=torch.bool,
                                                     device=next(iter(batch.values())).device)
                 body = functools.partial(train_step, self.model, self.optimizer,
                                          kind=self.kind, loss_type=self.loss_type,
-                                         two_way=self.two_way)
+                                         two_way=self.two_way, group=self.group)
             else:
                 body = functools.partial(eval_step, self.model, kind=self.kind,
-                                         loss_type=self.loss_type)
+                                         loss_type=self.loss_type, group=self.group)
             step = self.graphs[key] = StepGraph(
                 name, body, args, state, owner="run_training's",
                 eager="run_training --no-graphs")

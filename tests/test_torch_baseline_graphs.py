@@ -5,8 +5,9 @@ DELTAS at 64x48.
 
 On the CPU the static-buffer body runs without capture, with the card's
 semantics: inputs copied into fixed buffers, outputs in buffers that the
-next step rewrites, GP-MVS's decoder and DELTAS's densifier reading the
-first step's output buffers in place. Tolerances: against the eager path
+next step rewrites, GP-MVS's decoder reading the first step's output
+buffers in place. DELTAS is one step, detector to densifier with the DLT
+solve between (on the CPU its plain version, ``torch.linalg.svd``). Tolerances: against the eager path
 bit for bit (the same operations on the same values); DELTAS on its raw
 depth, before the clip to [0.5, 10] m (with seeded weights every clipped
 depth is one constant). Planted fault: the new reference frame left out of
@@ -37,7 +38,7 @@ NAMES = ["mvdepthnet", "gpmvs", "dpsnet", "deltas"]
 SIZES = {"mvdepthnet": (96, 64), "gpmvs": (96, 64), "dpsnet": (128, 128), "deltas": (64, 48)}
 CLASSES = {"mvdepthnet": mvdepthnet.MVDepthNet, "gpmvs": gpmvs.GPMVS, "dpsnet": dpsnet.DPSNet,
            "deltas": deltas.Deltas}
-STEPS = {"mvdepthnet": 1, "gpmvs": 2, "dpsnet": 1, "deltas": 2}  # graphs a predict runs
+STEPS = {"mvdepthnet": 1, "gpmvs": 2, "dpsnet": 1, "deltas": 1}  # graphs a predict runs
 DPS_LABELS, N_KEYFRAMES, GPMVS_RESET = 8, 3, 2  # GP-MVS resets before its third keyframe
 FAULT_GAP, SHARPEN = 1e-3, 30.0
 

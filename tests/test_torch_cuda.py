@@ -485,7 +485,9 @@ def test_baselines_on_the_card_match_the_cpu(cuda_device, name):
 
 def test_profile_baselines_reports_every_stage(cuda_device, tmp_path):
     """apps/profile_baselines.py at full size, one timed call a stage: every
-    stage timed, DELTAS's largest leaf allocation named."""
+    stage timed, DELTAS's largest leaf allocation named, no kernel launched
+    outside a graphed predict, DELTAS's DLT-solve kernel counted and timed
+    at every replay."""
     from dvmvs_tpu_torch.apps import profile_baselines
 
     out = tmp_path / "profile.json"
@@ -501,7 +503,11 @@ def test_profile_baselines_reports_every_stage(cuda_device, tmp_path):
         assert r["depth_gap"] <= cs.BASELINE_RTOL and r["captured_steps"] == graphs
         assert r["graphs"]["host_launches_per_predict"]["cudaGraphLaunch"] == graphs
         assert r["eager"]["host_launches_per_predict"]["cudaLaunchKernel"] > 0
+        assert r["graphs"]["host_launches_per_predict"]["cudaLaunchKernel"] == 0
         assert all(r[m]["predict_ms"]["median"] > 0 for m in ("graphs", "eager"))
+    deltas_paths = result["paths"]["deltas"]
+    assert deltas_paths["dlt_solve_launches_graphed_pass"] == deltas_paths["keyframes"]
+    assert all(deltas_paths[m]["dlt_solve_ms"] > 0 for m in ("graphs", "eager"))
 
 
 def _small_baseline(name, device, graphs):
@@ -587,29 +593,24 @@ def _train_case(kind, device, size=64, s=None, b=2):
     return make_model(kind, cfg, device, seed=1).train(), batches
 
 
-def _train_runs(kind, device, modes, fault=False):
+def _train_runs(kind, device, modes, group=None):
     """Three steps of "eager" and of each of ``modes`` from one seeded model
     (chip_smoke.py's ``lockstep_train_runs``: each step from the eager run's
     state before it), every module trainable, deterministic cuDNN; the mode
-    "fault" with the planted fault's Adam. Returns {mode: gaps to the eager
-    run} (``lockstep_gaps``, the noise leaves left out) and the plane-sweep
-    launches of the graphed steps after the first."""
+    "fault" with the planted fault's Adam; with ``group`` the data-parallel
+    step. Returns {mode: gaps to the eager run} (``lockstep_gaps``, the
+    noise leaves left out) and the plane-sweep launches of the graphed steps
+    after the first."""
     from dvmvs_tpu_torch.parallel import train as tt
 
     base, batches = _train_case(kind, device)
     modules = (tt.FUSIONNET_STAGES if kind == "fusionnet" else tt.PAIRNET_STAGES)[-1]
-    flips = [torch.tensor(f) for f in ([True, False], [False, True], [True, True])]
-
-    def optimizer_for(mode, model):
-        if mode != "fault":
-            return tt.make_optimizer(model, modules)
-        params = [p for name in modules for p in getattr(model, name).parameters()]
-        return cs.reassigning_adam(torch)(params, lr=1e-4, eps=1e-8, capturable=True)
-
+    flips = [torch.tensor(f) for f in cs.FLIPS]
     torch.backends.cudnn.deterministic = True
     try:
-        runs, before, launches = cs.lockstep_train_runs(torch, tps, base, kind, batches, flips,
-                                                        optimizer_for, modes)
+        runs, before, launches = cs.lockstep_train_runs(
+            torch, tps, base, kind, batches, flips, cs.lockstep_optimizer(torch, modules, 1e-4),
+            modes, group)
     finally:
         torch.backends.cudnn.deterministic = False
     noisy = cs.noise_leaves(runs)
@@ -631,6 +632,24 @@ def test_graphed_train_step_equals_eager_on_the_card(cuda_device, kind):
     assert cs.train_gaps_within(gaps["graphs"], gaps["repeat"]), gaps
     assert gaps["graphs"]["steps"] == 0.0, gaps
     assert launches["graphs"] == (4, 4)  # two replays of 2 forward and 2 backward launches
+
+
+@pytest.mark.parametrize("kind", ["fusionnet", "pairnet"])
+def test_graphed_group_step_equals_eager_on_the_card(cuda_device, kind):
+    """The data-parallel step in an NCCL group of one, graphed (the
+    gradient, loss and metric all-reduces inside the graph) against eager,
+    as test_graphed_train_step_equals_eager_on_the_card; the planted fault
+    breaks the limits."""
+    from dvmvs_tpu_torch.parallel import mesh
+
+    group, _ = mesh.init_data_parallel(1, device="cuda")
+    try:
+        gaps, launches = _train_runs(kind, cuda_device, ("repeat", "graphs", "fault"), group)
+    finally:
+        mesh.destroy()
+    assert cs.train_gaps_within(gaps["graphs"], gaps["repeat"]), gaps
+    assert not cs.train_gaps_within(gaps["fault"], gaps["repeat"]), gaps
+    assert launches["graphs"] == (4, 4)
 
 
 def test_reassigned_adam_state_breaks_the_graphed_step(cuda_device):

@@ -429,7 +429,7 @@ def test_step_graph_on_the_cpu_keeps_the_card_semantics():
     assert second is first  # the same output buffers
     assert first["sum"].tolist() == [3.0] * 3 and kept.tolist() == [1.0] * 3
     assert first["twice"][0].tolist() == [4.0] * 3
-    assert step.launches == (0, 0) and step.graph is None
+    assert step.launches == (0, 0, 0) and step.graph is None
     assert list(graphs.leaves({"a": (x, [acc])})) == [x, acc]
 
 

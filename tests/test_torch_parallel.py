@@ -22,10 +22,18 @@ affine parameters and statistics randomised as in test_torch_training.py.
   (c) Planted faults that must break (b): per-rank loss means averaged as
       plain DDP does, on the unequal batch, and BatchNorm without sync.
   (d) World size 1 equals the plain path bit for bit.
-  (e) ``run_testing --n-devices 2`` in both batched modes writes the files
-      of the single-process run, with equal depths and errors.
+  (e) ``run_testing --n-devices 2`` in both batched modes (each rank's
+      engine graphed, the default) writes the files of the single-process
+      run, with equal depths and errors.
   (f) ``dryrun_multichip(2)``.
-  And ``run_training --n-devices 2`` logs the single process's losses.
+  (g) The graphed group step (``GraphedTrainStep(group=...)``, on the CPU
+      its bodies on static buffers) equals the eager group step bit for
+      bit on every rank (losses, metrics, parameters, BatchNorm buffers,
+      gradients), float32 and float64, and so meets (b) in float64;
+      ``broadcast_state`` writes every tensor in place, so a graph captured
+      before a resume reads it; every rank draws batches of one shape.
+  And ``run_training --n-devices 2``, graphed (the default) and with
+  ``--no-graphs``, logs the single process's losses.
 
 Run as a script, the file is the rank worker of (a)-(c) (``DIR``), or the
 single process of (b) (``DIR single``).
@@ -65,6 +73,9 @@ CASES = [
     ("fusion_unequal_mean_f64", "fusionnet", "unequal", "train", "float64", "mean"),
     ("fusion_nosync_f64", "fusionnet", "normal", "train", "float64", "nosync"),
 ]
+# (g): cases the ranks also run through GraphedTrainStep, each rank comparing
+# the two paths itself; rank 0 saves the float64 ones as <name>_graphed
+GRAPHED = ["fusion_train", "pair_train", "fusion_f64", "pair_f64"]
 
 def _free_port() -> int:
     with socket.socket() as s:
@@ -183,14 +194,15 @@ def at_dtype(dtype):
         training_heads.init_lstm_carry = real_carry
 
 
-def run_case(case, weights, batch, flips, group=None, fault=None):
-    """One step of ``case`` on ``batch`` (this rank's rows under a group)."""
+def run_case(case, weights, batch, flips, group=None, fault=None, graphed=False):
+    """One step of ``case`` on ``batch`` (this rank's rows under a group),
+    through ``GraphedTrainStep`` when ``graphed``."""
     _, _, _, _, dtype, _ = case
     with at_dtype(getattr(torch, dtype)):
-        return _run_case(case, weights, batch, flips, group, fault)
+        return _run_case(case, weights, batch, flips, group, fault, graphed)
 
 
-def _run_case(case, weights, batch, flips, group, fault):
+def _run_case(case, weights, batch, flips, group, fault, graphed=False):
     from dvmvs_tpu_torch.parallel import train as tt
 
     _, kind, _, bn, dtype, _ = case
@@ -220,6 +232,9 @@ def _run_case(case, weights, batch, flips, group, fault):
         metrics = {"loss": loss.detach() * 1.0}
         dist.all_reduce(metrics["loss"], group=group)
         metrics["loss"] /= dist.get_world_size(group)
+    elif graphed:
+        steps = tt.GraphedTrainStep(model, kind, two_way=two_way, group=group)
+        metrics = steps.train(optimizer, batch, flips if two_way else None)
     else:
         metrics = tt.train_step(model, optimizer, batch, kind, two_way=two_way, flip_mask=flips,
                                 group=group)
@@ -250,14 +265,54 @@ def worker(work_dir):
     with open(os.path.join(work_dir, "flips.json")) as f:
         flips = json.load(f)
     try:
+        differ = {}
         for case in CASES:
-            name, kind, which, _, _, fault = case
+            name, kind, which, _, dtype, fault = case
             rows = mesh.shard_rows(case_batch(kind, which), rank, WORLD)
             out = run_case(case, weights, rows, flips, group, fault)
             if rank == 0:
                 torch.save(out, os.path.join(work_dir, f"{name}.pt"))
+            if name in GRAPHED:
+                graphed = run_case(case, weights, rows, flips, group, fault, graphed=True)
+                differ[name] = unequal(graphed, out)
+                if rank == 0 and dtype == "float64":  # what (b) reads, statistics alone
+                    graphed["state"] = {k: v for k, v in graphed["state"].items()
+                                        if k.endswith(("running_mean", "running_var"))}
+                    torch.save(graphed, os.path.join(work_dir, f"{name}_graphed.pt"))
+        with open(os.path.join(work_dir, f"rank_{rank}.json"), "w") as f:
+            json.dump({"graphed_differ": differ, "broadcast": broadcast_in_place(group, rank)}, f)
     finally:
         mesh.destroy()
+
+
+def unequal(got, want) -> list:
+    """The entries of two ``step_result``s that differ (loss, metrics,
+    state, gradients; torch.equal)."""
+    keys = [] if torch.equal(got["loss"], want["loss"]) else ["loss"]
+    for part in ("metrics", "state", "grads"):
+        if got[part].keys() != want[part].keys():
+            keys.append(part)
+            continue
+        keys += [f"{part}.{k}" for k, v in want[part].items() if not torch.equal(got[part][k], v)]
+    return keys
+
+
+def broadcast_in_place(group, rank) -> dict:
+    """Every tensor of a model and its Adam state set to rank + 1, then
+    ``broadcast_state``: whether each kept its storage and holds rank 0's
+    value."""
+    from dvmvs_tpu_torch.parallel import train as tt
+
+    model = net("pairnet")
+    optimizer = tt.make_optimizer(model, tt.PAIRNET_STAGES[-1])
+    state = [*model.state_dict().values(), *tt.init_optimizer_state(optimizer)]
+    with torch.no_grad():
+        for t in state:
+            t.fill_(rank + 1)
+    storage = [t.data_ptr() for t in state]
+    tt.broadcast_state(model, group, optimizer)
+    return {"in_place": storage == [t.data_ptr() for t in state],
+            "rank0_values": all(bool((t == 1).all()) for t in state), "tensors": len(state)}
 
 
 # ----------------------------------------------------------------- the tests
@@ -331,10 +386,15 @@ def parity(tmp_path_factory):
             p.kill()
         raise
     finish(procs)
-    ranks = {name: torch.load(os.path.join(work, f"{name}.pt")) for name, *_ in CASES}
+    names = [name for name, *_ in CASES] + [f"{n}_graphed" for n in GRAPHED if "f64" in n]
+    ranks = {name: torch.load(os.path.join(work, f"{name}.pt")) for name in names}
     single = {name: torch.load(os.path.join(work, f"single_{name}.pt"))
               for name, _, _, _, dtype, fault in CASES if fault is None and dtype == "float64"}
-    return {"jax": jax_out, "single": single, "ranks": ranks}
+    by_rank = []
+    for r in range(WORLD):
+        with open(os.path.join(work, f"rank_{r}.json")) as f:
+            by_rank.append(json.load(f))
+    return {"jax": jax_out, "single": single, "ranks": ranks, "by_rank": by_rank}
 
 
 def _rel(got, want) -> float:
@@ -364,11 +424,13 @@ def _single_vs_ranks(single, ranks):
     return loss, stats, grads
 
 
-@pytest.mark.parametrize("name", ["fusion_f64", "pair_f64", "fusion_unequal_f64"])
+@pytest.mark.parametrize("name", ["fusion_f64", "pair_f64", "fusion_unequal_f64",
+                                  "fusion_f64_graphed", "pair_f64_graphed"])
 def test_two_rank_step_matches_single_process(parity, name):
     """(b), in float64: loss and statistics rtol 1e-5, gradients 1e-4
-    relative L2 a tensor."""
-    loss, stats, grads = _single_vs_ranks(parity["single"][name], parity["ranks"][name])
+    relative L2 a tensor; the graphed group step too (g)."""
+    single = parity["single"][name.removesuffix("_graphed")]
+    loss, stats, grads = _single_vs_ranks(single, parity["ranks"][name])
     print(f"{name}: loss {loss:.2e}, statistics {stats:.2e}, gradients {grads:.2e}")
     assert loss <= SINGLE_RTOL, loss
     assert stats <= SINGLE_RTOL, stats
@@ -442,6 +504,41 @@ def test_world_size_one_is_the_plain_step_bit_for_bit(parity, kind):
     for part in ("metrics", "state", "grads"):
         for k, v in plain[part].items():
             assert torch.equal(dp[part][k], v), (part, k)
+
+
+@pytest.mark.parametrize("name", GRAPHED)
+def test_graphed_group_step_equals_the_eager_one_bit_for_bit(parity, name):
+    """(g): on every rank, the graphed group step's loss, metrics,
+    parameters, BatchNorm buffers and gradients equal the eager group
+    step's bit for bit (each rank compares them, ``unequal``)."""
+    for rank, result in enumerate(parity["by_rank"]):
+        assert result["graphed_differ"][name] == [], (rank, result["graphed_differ"][name][:5])
+
+
+def test_broadcast_state_writes_in_place(parity):
+    """(g): after ``broadcast_state`` every parameter, buffer and Adam state
+    tensor of every rank keeps its storage and holds rank 0's values."""
+    for rank, result in enumerate(parity["by_rank"]):
+        b = result["broadcast"]
+        assert b["in_place"] and b["rank0_values"] and b["tensors"] > 100, (rank, b)
+
+
+def test_every_rank_draws_batches_of_one_shape(monkeypatch):
+    """(g): a graph is captured at a batch shape, so every rank must see
+    every shape: ``run_training``'s batches drop the last partial global
+    batch (7 samples in batches of 4) and cut equal rows, shuffled or not."""
+    from dvmvs_tpu_torch.apps import run_training
+    from dvmvs_tpu_torch.parallel import mesh
+
+    dataset = [{"x": np.full((3,), i, np.float32)} for i in range(7)]
+    monkeypatch.setattr(mesh, "world_size", lambda group=None: WORLD)
+    for shuffle in (True, False):
+        seen = []
+        for rank in range(WORLD):
+            monkeypatch.setattr(mesh, "rank", lambda group=None, r=rank: r)
+            seen.append([b["x"].shape for b in run_training.rank_batches(
+                dataset, 4, shuffle, seed=0, group=object())])
+        assert seen[0] == seen[1] == [(2, 3)], (shuffle, seen)
 
 
 # the index files of the bulk scenes: 5 keyframes (a full and a padded
@@ -522,29 +619,42 @@ def test_run_testing_refuses_scan_chunk_on_two_devices(bulk_data):
                           "--batch-size", "4", "--scan-chunk", "2", "--n-devices", "2"])
 
 
-def test_run_training_on_two_ranks_logs_the_single_process_losses(tmp_path):
-    """``run_training --n-devices 2``: every rank draws the global batch and
-    takes its rows, rank 0 alone writes the run directory, and the logged
-    losses and validation metrics are the single process's: the first
-    step's loss within rtol 1e-5 (the same weights and rows); later ones
-    within DRIVER_RTOL, because Adam's first step, about lr * sign(g),
-    turns the float32 rounding of train-mode BatchNorm gradients into
-    parameter differences (measured 1.8e-4 on the second step's loss)."""
+@pytest.fixture(scope="module")
+def single_training_run(tmp_path_factory):
+    """A small corpus, run_training's arguments and its single-process run
+    (one torch thread)."""
     from dvmvs_tpu_torch.apps import run_training
     from dvmvs_tpu_torch.apps.make_synth_scenes import make_corpus
 
-    make_corpus(str(tmp_path / "corpus"), 1, 1, 0, frames=12, width=64, height=64, workers=2)
-    args = ["--model", "pairnet", "--dataset", str(tmp_path / "corpus" / "train"),
+    root = tmp_path_factory.mktemp("training")
+    make_corpus(str(root / "corpus"), 1, 1, 0, frames=12, width=64, height=64, workers=2)
+    args = ["--model", "pairnet", "--dataset", str(root / "corpus" / "train"),
             "--batch-size", "4", "--epochs", "1", "--finetune-epochs", "1", "--max-steps", "2",
             "--print-frequency", "1", "--image-size", "64", "64", "--device", "cpu"]
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        one = run_training.main(args + ["--run-directory", str(tmp_path / "one")])
+        one = run_training.main(args + ["--run-directory", str(root / "one")])
     finally:
         torch.set_num_threads(n)
+    return args, one
+
+
+@pytest.mark.parametrize("path", [[], ["--no-graphs"]], ids=["graphs", "no_graphs"])
+def test_run_training_on_two_ranks_logs_the_single_process_losses(single_training_run, tmp_path,
+                                                                  path):
+    """``run_training --n-devices 2``, each step a replay of the graphed
+    group step (the default; its bodies on static buffers on the CPU) or
+    eager (``--no-graphs``): every rank draws the global batch and takes its
+    rows, rank 0 alone writes the run directory, and the logged losses and
+    validation metrics are the single process's: the first step's loss
+    within rtol 1e-5 (the same weights and rows); later ones within
+    DRIVER_RTOL, because Adam's first step, about lr * sign(g), turns the
+    float32 rounding of train-mode BatchNorm gradients into parameter
+    differences (measured 1.8e-4 on the second step's loss)."""
+    args, one = single_training_run
     launch(["-m", "dvmvs_tpu_torch.apps.run_training", "--n-devices", "2",
-            "--run-directory", str(tmp_path / "two")] + args)
+            "--run-directory", str(tmp_path / "two")] + args + path)
     two, = [os.path.join(tmp_path / "two", d) for d in os.listdir(tmp_path / "two")]
     logs = []
     for run in (one, two):
