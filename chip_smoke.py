@@ -7,8 +7,9 @@ backward and DELTAS's DLT solve, one nvcc each, in parallel) and drives
 every path of the port:
 
   - online: the forward kernel against its plain PyTorch version at the
-    online path's shape (eight geometries and modes, C=30 and C=64) and at
-    640x480 frames, its timing at both beside its bound (the least time the
+    online path's shape (eight geometries and modes, C=30 and C=64; its
+    small-channel variant at C=1 and C=4 in both modes) and at 640x480
+    frames, its timing at both beside its bound (the least time the
     card could take), a synthetic 320x256 scene through the online fusionnet
     loop (``predict_stream`` -> keyframe buffer -> ``InferenceEngine``) with
     seeded random weights, and agreement with the same engine on the CPU;
@@ -47,7 +48,8 @@ every path of the port:
     driver with a live TSDF volume;
   - baselines: the forward kernel in L1 mode at MVDepthNet's and GP-MVS's
     shape (normalised RGB, C=3, at 256x320, planes at 0.5-50 m) against its
-    plain version and timed beside its bound, then MVDepthNet, GP-MVS,
+    plain version (also on a ragged 255x317) and timed beside its bound,
+    then MVDepthNet, GP-MVS,
     DPSNet and DELTAS (their ``predict`` as CUDA graph replays, the default)
     through ``run_testing_baseline.evaluate_scene_baseline`` over one 640x480
     synthetic scene and its index file (ms a keyframe, peak memory,
@@ -262,6 +264,14 @@ CASES = {
                        BASELINE_DEPTHS),
     "l1_rgb_256x320_masked": (BASELINE_SWEEP, (2, 3, 1), (0.12, 0.03, 0.02), (1.0, 0.0), False,
                               BASELINE_DEPTHS),
+    # the small-channel variant (C <= 4) beside the RGB cases: C=1 and C=4 in
+    # both modes, and C=3 on tiles and rows the image does not fill
+    "c1": (_with_c(ONLINE, 1), (2, 3, 1), (0.12, 0.03, 0.02), (0.5, 0.5), True),
+    "c1_l1": (_with_c(ONLINE, 1), (2, 3, 1), (0.12, 0.03, 0.02), (0.5, 0.5), False),
+    "c4": (_with_c(ONLINE, 4), (2, 3, 1), (0.12, 0.03, 0.02), (0.5, 0.5), True),
+    "c4_l1": (_with_c(ONLINE, 4), (2, 3, 1), (0.12, 0.03, 0.02), (0.5, 0.5), False),
+    "l1_rgb_255x317": ((1, 2, 3, 255, 317, 64), (2, 3, 1), (0.12, 0.03, 0.02), (0.5, 0.5), False,
+                       BASELINE_DEPTHS),
 }
 
 

@@ -26,11 +26,14 @@ with each shape's bound (the least time the card could take,
 ``sweep_bound``) and each version's registers and spills (``ptxas_report``;
 empty for a library built earlier).
 
-Shapes (B, V, C, H, W, P), typical geometry, dot product:
+Shapes (B, V, C, H, W, P), typical geometry, dot product and planes at
+0.25-20 m unless given:
   forward:
     online          1, 2, 32, 128, 160, 64: fusionnet at 320x256 frames
     training        4, 1, 32, 128, 128, 64: the single-view training forward at 256x256
     640x480         1, 2, 32, 240, 320, 64: 640x480 frames
+    baselines_l1    1, 2, 3, 256, 320, 64, L1 mode, planes at 0.5-50 m: MVDepthNet's
+                    and GP-MVS's sweep of the normalised RGB frames
   backward:
     training        4, 1, 32, 128, 128, 64: the training backward at 256x256
     online_masked   1, 2, 32, 128, 160, 64, view weights (1, 0): one view masked
@@ -52,17 +55,20 @@ import subprocess
 
 import numpy as np
 
-# kernel -> shape name -> ((B, V, C, H, W, P), view weights or None for 1/V each)
+DOT, L1, DEPTHS = True, False, (0.25, 20.0)
+# kernel -> shape name -> ((B, V, C, H, W, P), view weights or None for 1/V
+# each, dot product, depth range of the planes in metres)
 SHAPES = {
     "forward": {
-        "online": ((1, 2, 32, 128, 160, 64), None),
-        "training": ((4, 1, 32, 128, 128, 64), None),
-        "640x480": ((1, 2, 32, 240, 320, 64), None),
+        "online": ((1, 2, 32, 128, 160, 64), None, DOT, DEPTHS),
+        "training": ((4, 1, 32, 128, 128, 64), None, DOT, DEPTHS),
+        "640x480": ((1, 2, 32, 240, 320, 64), None, DOT, DEPTHS),
+        "baselines_l1": ((1, 2, 3, 256, 320, 64), None, L1, (0.5, 50.0)),
     },
     "backward": {
-        "training": ((4, 1, 32, 128, 128, 64), None),
-        "online_masked": ((1, 2, 32, 128, 160, 64), (1.0, 0.0)),
-        "640x480": ((1, 2, 32, 240, 320, 64), None),
+        "training": ((4, 1, 32, 128, 128, 64), None, DOT, DEPTHS),
+        "online_masked": ((1, 2, 32, 128, 160, 64), (1.0, 0.0), DOT, DEPTHS),
+        "640x480": ((1, 2, 32, 240, 320, 64), None, DOT, DEPTHS),
     },
 }
 SOURCES = {"forward": "plane_sweep", "backward": "plane_sweep_bwd"}
@@ -71,7 +77,7 @@ OUTPUTS = {"forward": ("cost",), "backward": ("d_ref", "d_meas")}
 
 def _short_name(mangled: str) -> str:
     """``..._kernelILi4ELi2ELb1EEEv...`` -> ``plane_sweep_kernel<4,2,1>``."""
-    m = re.search(r"(plane_sweep(?:_bwd)?_kernel)I(.*?)EEv", mangled)
+    m = re.search(r"(plane_sweep(?:_bwd|_small)?_kernel)I(.*?)EEv", mangled)
     return f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>" if m else mangled
 
 
@@ -131,8 +137,8 @@ def case_inputs(kernel: str, shape_name: str, device="cuda"):
 
     from dvmvs_tpu_torch.ops.sweep_measure import sweep_case
 
-    shape, weights = SHAPES[kernel][shape_name]
-    inputs = sweep_case(shape, weights=weights, device=device)
+    shape, weights, _, depths = SHAPES[kernel][shape_name]
+    inputs = sweep_case(shape, weights=weights, device=device, depths=depths)
     if kernel == "backward":
         B, _, _, H, W, P = shape
         g = np.random.RandomState(1).randn(B, P, H, W).astype(np.float32)
@@ -140,21 +146,21 @@ def case_inputs(kernel: str, shape_name: str, device="cuda"):
     return inputs
 
 
-def plain(kernel: str, inputs) -> tuple:
+def plain(kernel: str, inputs, dot: bool = True) -> tuple:
     """The plain version's outputs (``OUTPUTS[kernel]``) on these inputs."""
     from dvmvs_tpu_torch.ops import plane_sweep as ps
 
     if kernel == "forward":
-        return (ps.plane_sweep_multiview_plain(*inputs),)
+        return (ps.plane_sweep_multiview_plain(*inputs, dot),)
     return ps.plane_sweep_backward_plain(*inputs)
 
 
-def launch(kernel: str, fn, inputs) -> tuple:
+def launch(kernel: str, fn, inputs, dot: bool = True) -> tuple:
     """Launch a bound entry point of the kernel on the inputs."""
     from dvmvs_tpu_torch.ops import plane_sweep as ps
 
     if kernel == "forward":
-        return (ps.launch_forward(fn, *inputs),)
+        return (ps.launch_forward(fn, *inputs, dot),)
     return ps.launch_backward(fn, *inputs)
 
 
@@ -163,7 +169,7 @@ def max_abs_diff(kernel: str, got, want) -> dict:
     return {name: (a - b).abs().max().item() for name, a, b in zip(OUTPUTS[kernel], got, want)}
 
 
-def plain_timer(kernel: str, inputs):
+def plain_timer(kernel: str, inputs, dot: bool = True):
     """A call of the plain version to time: the forward, or for the backward
     autograd of a graph built once and kept."""
     import torch
@@ -171,7 +177,7 @@ def plain_timer(kernel: str, inputs):
     from dvmvs_tpu_torch.ops import plane_sweep as ps
 
     if kernel == "forward":
-        return lambda: ps.plane_sweep_multiview_plain(*inputs)
+        return lambda: ps.plane_sweep_multiview_plain(*inputs, dot)
     ref, meas, mats, w, g = inputs
     r, m = ref.clone().requires_grad_(), meas.clone().requires_grad_()
     out = ps.plane_sweep_multiview_plain(r, m, mats, w)
@@ -196,17 +202,17 @@ def main(argv=None):
     built = cuda_build.build_all(list(versions.values()))
     fns = {name: ps.bind(ctypes.CDLL(str(built[k][0])), source) for name, k in versions.items()}
     ptxas = {name: ptxas_report(built[k][1]) for name, k in versions.items()}
-    wrapper = ps.plane_sweep_multiview if kernel == "forward" else ps.plane_sweep_backward
 
     report = {"card": card_name(), "kernel": kernel, "ptxas": ptxas, "shapes": {}}
     for shape_name in args.shapes:
         inputs = case_inputs(kernel, shape_name)
-        want = plain(kernel, inputs)
-        outs = {name: launch(kernel, fn, inputs) for name, fn in fns.items()}
+        dot = SHAPES[kernel][shape_name][2]
+        want = plain(kernel, inputs, dot)
+        outs = {name: launch(kernel, fn, inputs, dot) for name, fn in fns.items()}
         torch.cuda.synchronize()
         ref, meas, mats, w = inputs[:4]
         entry = {"shape": dict(zip("BVCHWP", SHAPES[kernel][shape_name][0])),
-                 "weights": w[0].tolist(),
+                 "weights": w[0].tolist(), "dot_product": dot,
                  **sweep_bound(ref, meas, mats, w, backward=kernel == "backward"),
                  "max_abs_err": {n: max_abs_diff(kernel, o, want) for n, o in outs.items()}}
         if kernel == "backward":
@@ -218,16 +224,18 @@ def main(argv=None):
         times = {}
         for name in turns(args.baseline):
             fn = fns[name]
-            times.setdefault(name, []).append(time_ms(lambda: launch(kernel, fn, inputs)))
+            times.setdefault(name, []).append(time_ms(lambda: launch(kernel, fn, inputs, dot)))
         entry["ms"] = times
-        entry["single_launch_ms"] = single_launch_ms(lambda: wrapper(*inputs))
-        entry["plain_ms"] = time_ms(plain_timer(kernel, inputs))
+        entry["single_launch_ms"] = single_launch_ms(
+            lambda: ps.plane_sweep_multiview(*inputs, dot) if kernel == "forward"
+            else ps.plane_sweep_backward(*inputs))
+        entry["plain_ms"] = time_ms(plain_timer(kernel, inputs, dot))
         if args.probe:
             one_plane = mats[:, :, mats.shape[2] // 2:][:, :, :1].expand_as(mats).contiguous()
             identity = torch.eye(3, device=mats.device).expand_as(mats).contiguous()
             entry["probe_ms"] = {
                 probe: {name: time_ms(lambda fn=fn, m=m: launch(
-                    kernel, fn, (ref, meas, m, *inputs[3:]))) for name, fn in fns.items()}
+                    kernel, fn, (ref, meas, m, *inputs[3:]), dot)) for name, fn in fns.items()}
                 for probe, m in (("one_plane", one_plane), ("identity", identity))}
         entry["share_of_bound"] = {n: entry["bound_ms"] / float(np.median(t))
                                    for n, t in times.items()}

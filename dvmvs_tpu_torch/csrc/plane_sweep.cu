@@ -57,6 +57,34 @@
 // TMA and wgmma are left out: the sweep has no matrix product, and the
 // source rows a tile reads are unbounded under roll or behind the camera, so
 // they are not staged in shared memory.
+//
+// Small channel counts (C <= 4: MVDepthNet's and GP-MVS's L1 sweep of the
+// normalised RGB frames, C=3 at 256x320, P=64) take another kernel,
+// plane_sweep_small_kernel, in either mode. There a group of lanes a pixel
+// leaves most lanes idle and repeats the per-sample work (projection, taps,
+// weights, addresses) on every lane for one scalar channel, and the
+// shuffles and the shared-memory round trips exist only to share it.
+// Bound: about 24 MB of compulsory traffic (7.1 us at 3.35 TB/s at that
+// shape) against 10.5 M (pixel, plane, view) samples, each a projection (two
+// IEEE divisions), the tap arithmetic and 4 x C scalar gathers: the kernel
+// is bound by the instructions it issues a sample, not by device memory
+// (float2 loads, which cut the L1 wavefronts of its gathers, gained nothing).
+// Design:
+//   - One thread a reference pixel; a warp takes 32 consecutive x of one
+//     row. The pixel's C channels and sum_c |ref| stay in registers.
+//   - For each (plane, view) the thread projects, computes the four tap
+//     weights and bounds once, gathers 4 taps x C floats and keeps the
+//     channel and view sums in registers: no shuffles, no s_xy. A sample
+//     whose four taps are all inside the image (most of them) skips the
+//     per-tap bounds and takes all four taps from one address; this cut the
+//     time at the RGB shape by a tenth, where two planes a loop iteration
+//     gained nothing (PERF.md).
+//   - The block's plane matrices and view weights are staged in shared
+//     memory and read as warp-wide broadcasts.
+//   - Each plane row goes straight to out as one 128-byte store a warp (or
+//     is added to it for a later view group); no s_out, no atomics.
+//   - Planes are split over blocks so that the tiles (320 of 32x8 at
+//     256x320) fill the card.
 
 #include <cuda_runtime.h>
 
@@ -258,6 +286,186 @@ plane_sweep_kernel(const float* __restrict__ ref,      // (B, H, W, C)
   }
 }
 
+// Small-channel variant: tile, register target and plane split. Each was
+// timed against the other settings tried (PERF.md).
+constexpr int kSmallMaxChannels = 4;
+constexpr int kSmallRows = 8;             // rows of the tile; kTileX columns
+constexpr int kSmallThreads = kTileX * kSmallRows;
+constexpr int kSmallMinBlocks = 4;        // resident blocks per SM that ptxas must fit
+constexpr int kSmallTargetBlocks = 2048;  // blocks below which planes are split over blocks
+constexpr int kSmallMaxShared = 227 * 1024;
+static_assert(kSmallThreads % 32 == 0 && kSmallThreads <= 1024, "small block size");
+
+// The C channels of four bilinear taps.
+template <int C>
+__device__ __forceinline__ void gather_taps(const float* t00, const float* t01, const float* t10,
+                                            const float* t11, float (&a)[C], float (&bb)[C],
+                                            float (&cc)[C], float (&d)[C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    a[c] = __ldg(t00 + c);
+    bb[c] = __ldg(t01 + c);
+    cc[c] = __ldg(t10 + c);
+    d[c] = __ldg(t11 + c);
+  }
+}
+
+// One thread a reference pixel, C <= 4 channels in registers. Same
+// arguments as plane_sweep_kernel; the block takes kTileX x kSmallRows
+// pixels of batch element b and planes_per_block planes.
+template <int C, bool DOT>
+__global__ void __launch_bounds__(kSmallThreads, kSmallMinBlocks)
+plane_sweep_small_kernel(const float* __restrict__ ref,      // (B, H, W, C)
+                         const float* __restrict__ meas,     // (B, v_stride, H, W, C)
+                         const float* __restrict__ mats,     // (B, v_stride, P, 3, 3)
+                         const float* __restrict__ weights,  // (B, v_stride)
+                         float* __restrict__ out,            // (B, P, H, W)
+                         int V, int v_stride, int P, int H, int W, int planes_per_block,
+                         bool accumulate) {
+  extern __shared__ float4 shared4[];
+  float* s_mats = reinterpret_cast<float*>(shared4);
+  float* s_w = s_mats + V * planes_per_block * kMatStride;
+
+  const int splits = (P + planes_per_block - 1) / planes_per_block;
+  const int b = blockIdx.z / splits;
+  const int p_begin = (blockIdx.z % splits) * planes_per_block;
+  const int n_planes = min(P - p_begin, planes_per_block);
+
+  for (int i = threadIdx.x; i < V * n_planes * 9; i += kSmallThreads) {
+    const int v = i / (n_planes * 9);
+    const int p = i / 9 - v * n_planes;
+    const int e = i % 9;
+    s_mats[(v * planes_per_block + p) * kMatStride + e] =
+        mats[(((int64_t)b * v_stride + v) * P + p_begin + p) * 9 + e];
+  }
+  for (int v = threadIdx.x; v < V; v += kSmallThreads) s_w[v] = weights[b * v_stride + v];
+  __syncthreads();  // the only barrier: threads off the image may leave after it
+
+  const int x = blockIdx.x * kTileX + threadIdx.x % kTileX;
+  const int y = blockIdx.y * kSmallRows + threadIdx.x / kTileX;
+  if (x >= W || y >= H) return;
+  const float xf = (float)x, yf = (float)y;
+  const float x_scale = plane_sweep::align_scale(W);
+  const float y_scale = plane_sweep::align_scale(H);
+
+  const float* ref_px = ref + (((int64_t)b * H + y) * W + x) * C;
+  float r[C];
+  float abs_r = 0.0f;  // L1 mode: sum_c |ref|, the cost of a sample whose taps are all zero
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    r[c] = __ldg(ref_px + c);
+    abs_r += fabsf(r[c]);
+  }
+  const float* meas_b = meas + (int64_t)b * v_stride * H * W * C;
+  float* o = out + (((int64_t)b * P + p_begin) * H + y) * W + x;
+  const int64_t plane_stride = (int64_t)H * W;
+
+#pragma unroll 1
+  for (int q = 0; q < n_planes; ++q, o += plane_stride) {
+    float total = 0.0f;
+#pragma unroll 1
+    for (int v = 0; v < V; ++v) {
+      const float wv = s_w[v];
+      if (wv == 0.0f) continue;  // a padded view contributes nothing
+      const float4* m4 =
+          reinterpret_cast<const float4*>(s_mats + (v * planes_per_block + q) * kMatStride);
+      const float4 ma = m4[0], mb = m4[1], mc = m4[2];
+      const float m[9] = {ma.x, ma.y, ma.z, ma.w, mb.x, mb.y, mb.z, mb.w, mc.x};
+      const plane_sweep::Taps t =
+          plane_sweep::bilinear_taps(m, xf, yf, x_scale, y_scale, W, H);
+      float part = 0.0f;
+      if (!t.in_range) {
+        part = DOT ? 0.0f : abs_r;  // all four taps are zero
+      } else {
+        const float* base = meas_b + (int64_t)v * H * W * C;
+        // the weights and channels of taps (x0, y0), (x0 + 1, y0), (x0, y0 + 1)
+        // and (x0 + 1, y0 + 1)
+        float w00, w01, w10, w11;
+        float a[C], bb[C], cc[C], d[C];
+        if (t.x0 >= 0 && t.x0 + 1 < W && t.y0 >= 0 && t.y0 + 1 < H) {
+          // all four taps inside: two pairs of adjacent pixels, one address
+          w00 = t.wy0 * t.wx0;
+          w01 = t.wy0 * t.wx1;
+          w10 = t.wy1 * t.wx0;
+          w11 = t.wy1 * t.wx1;
+          const float* t00 = base + (int64_t)(t.y0 * W + t.x0) * C;
+          const float* t10 = t00 + (int64_t)W * C;
+          gather_taps<C>(t00, t00 + C, t10, t10 + C, a, bb, cc, d);
+        } else {
+          const bool vx0 = t.x0 >= 0, vx1 = t.x0 + 1 < W;
+          const bool vy0 = t.y0 >= 0, vy1 = t.y0 + 1 < H;
+          // an invalid tap reads pixel 0 of the view with weight 0
+          w00 = vy0 && vx0 ? t.wy0 * t.wx0 : 0.0f;
+          w01 = vy0 && vx1 ? t.wy0 * t.wx1 : 0.0f;
+          w10 = vy1 && vx0 ? t.wy1 * t.wx0 : 0.0f;
+          w11 = vy1 && vx1 ? t.wy1 * t.wx1 : 0.0f;
+          const int row0 = t.y0 * W, row1 = row0 + W;
+          gather_taps<C>(base + (int64_t)(vy0 && vx0 ? row0 + t.x0 : 0) * C,
+                         base + (int64_t)(vy0 && vx1 ? row0 + t.x0 + 1 : 0) * C,
+                         base + (int64_t)(vy1 && vx0 ? row1 + t.x0 : 0) * C,
+                         base + (int64_t)(vy1 && vx1 ? row1 + t.x0 + 1 : 0) * C, a, bb, cc, d);
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float warped = a[c] * w00 + bb[c] * w01 + cc[c] * w10 + d[c] * w11;
+          part = DOT ? part + r[c] * warped : part + fabsf(r[c] - warped);
+        }
+      }
+      total += wv * (DOT ? part * (1.0f / C) : part);
+    }
+    *o = accumulate ? *o + total : total;
+  }
+}
+
+template <int C>
+int launch_small_c(bool dot, dim3 grid, size_t shared, cudaStream_t stream, const float* ref,
+                   const float* meas, const float* mats, const float* weights, float* out, int V,
+                   int v_stride, int P, int H, int W, int planes_per_block, bool accumulate) {
+  auto kernel = plane_sweep_small_kernel<C, true>;
+  if (!dot) kernel = plane_sweep_small_kernel<C, false>;
+  if (shared > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, kSmallThreads, shared, stream>>>(ref, meas, mats, weights, out, V, v_stride, P,
+                                                   H, W, planes_per_block, accumulate);
+  return (int)cudaGetLastError();
+}
+
+// One launch of the small-channel kernel over views [0, V), as launch_views.
+int launch_small(const float* ref, const float* meas, const float* mats, const float* weights,
+                 float* out, int B, int V, int v_stride, int P, int H, int W, int C, bool dot,
+                 bool accumulate, cudaStream_t s) {
+  const int64_t tiles_x = (W + kTileX - 1) / kTileX;
+  const int64_t tiles_y = (H + kSmallRows - 1) / kSmallRows;
+  const int64_t tiles = tiles_x * tiles_y * B;
+  // split the planes over blocks while the tiles alone leave the card short
+  // of blocks; the block's matrices and weights must fit its shared memory
+  const int64_t want = kSmallTargetBlocks / tiles;
+  const int splits = (int)(want < 1 ? 1 : want > P ? P : want);
+  int planes_per_block = (P + splits - 1) / splits;
+  const int64_t fit = (kSmallMaxShared - (int64_t)V * (int64_t)sizeof(float)) /
+                      ((int64_t)V * kMatStride * (int64_t)sizeof(float));
+  if (fit < 1) return (int)cudaErrorInvalidValue;
+  if (planes_per_block > fit) planes_per_block = (int)fit;
+  const int64_t blocks_z = (int64_t)B * ((P + planes_per_block - 1) / planes_per_block);
+  if (tiles_y > 65535 || blocks_z > 65535 || tiles_x > INT_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles_x, (unsigned)tiles_y, (unsigned)blocks_z);
+  const size_t shared = sizeof(float) * ((size_t)V * planes_per_block * kMatStride + V);
+#define PS_SMALL(CH)                                                                         \
+  launch_small_c<CH>(dot, grid, shared, s, ref, meas, mats, weights, out, V, v_stride, P, H, \
+                     W, planes_per_block, accumulate)
+  switch (C) {
+    case 1: return PS_SMALL(1);
+    case 2: return PS_SMALL(2);
+    case 3: return PS_SMALL(3);
+    case 4: return PS_SMALL(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PS_SMALL
+}
+
 template <int VEC, int CHUNKS, bool DOT>
 int launch_one(dim3 grid, size_t shared, cudaStream_t stream, const float* ref, const float* meas,
                const float* mats, const float* weights, float* out, int V, int v_stride, int P,
@@ -290,6 +498,9 @@ int launch(bool dot, dim3 grid, size_t shared, cudaStream_t stream, const float*
 int launch_views(const float* ref, const float* meas, const float* mats, const float* weights,
                  float* out, int B, int V, int v_stride, int P, int H, int W, int C, bool dot,
                  bool vec4, bool accumulate, cudaStream_t s) {
+  if (C <= kSmallMaxChannels)
+    return launch_small(ref, meas, mats, weights, out, B, V, v_stride, P, H, W, C, dot,
+                        accumulate, s);
   const int64_t tiles_x = (W + kTileX - 1) / kTileX;
   const int64_t tiles_y = (H + kRows - 1) / kRows;
   const int64_t tiles = tiles_x * tiles_y * B;
@@ -326,6 +537,8 @@ int launch_views(const float* ref, const float* meas, const float* mats, const f
 }
 
 // The views one launch can take: a block holds one chunk of planes for each.
+// The small-channel kernel takes the same groups (its block holds at least
+// one plane's matrix a view), so the count of launches depends on V alone.
 constexpr int kViewsPerLaunch = (int)(kMaxShared / (shared_floats(1, kChunk) * sizeof(float)));
 
 }  // namespace

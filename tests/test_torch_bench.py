@@ -54,6 +54,8 @@ def test_ptxas_report_pairs_kernels_with_registers_and_spills():
     fwd = ("_ZN47_GLOBAL__N__5b31680f_14_plane_sweep_cu_45ba030518plane_sweep_kernel"
            "ILi4ELi2ELb1EEEvPKfS2_S2_S2_Pfiiiiiif")
     bwd = "_ZN12_GLOBAL__N_122plane_sweep_bwd_kernelILb0EEEvPKfS2_S2_S2_S2_PfS3_iiiiif"
+    small = ("_ZN47_GLOBAL__N__5b31680f_14_plane_sweep_cu_45ba030524plane_sweep_small_kernel"
+             "ILi3ELb0EEEvPKfS2_S2_S2_Pfiiiiiib")
     log = "\n".join([
         "ptxas info    : 0 bytes gmem",
         f"ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'",
@@ -64,6 +66,9 @@ def test_ptxas_report_pairs_kernels_with_registers_and_spills():
         f"ptxas info    : Function properties for {bwd}",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 40 registers, 388 bytes cmem[0]",
+        f"ptxas info    : Function properties for {small}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 38 registers, 388 bytes cmem[0]",
         "ptxas info    : Function properties for _Z5otherv",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 8 registers",
@@ -71,6 +76,7 @@ def test_ptxas_report_pairs_kernels_with_registers_and_spills():
     assert bench.ptxas_report(log) == {
         "plane_sweep_kernel<4,2,1>": "64 registers, 16 bytes spilled",
         "plane_sweep_bwd_kernel<0>": "40 registers, 0 bytes spilled",
+        "plane_sweep_small_kernel<3,0>": "38 registers, 0 bytes spilled",
         "_Z5otherv": "8 registers, 0 bytes spilled"}
     assert bench.ptxas_report("") == {}
 
@@ -92,6 +98,7 @@ def test_bench_parses_the_backward_mode():
     assert args.shapes == ["training", "online_masked", "640x480"]
     args = bench.parse_args(["--shapes", "online,640x480"])
     assert (args.kernel, args.baseline, args.shapes) == ("forward", [], ["online", "640x480"])
+    assert bench.parse_args([]).shapes == ["online", "training", "640x480", "baselines_l1"]
     with pytest.raises(SystemExit):
         bench.parse_args(["--kernel", "backward", "--shapes", "online"])
     assert bench.turns(["a", "b"]) == ["a", "b", "current", "current", "b", "a"]
@@ -117,6 +124,35 @@ def test_backward_shapes_and_report_keys():
     assert bench.max_abs_diff("backward", got, (torch.ones(2, 3), torch.ones(4))) == {
         "d_ref": 1.0, "d_meas": 0.0}
     assert list(bench.max_abs_diff("forward", got[:1], got[:1])) == ["cost"]
+
+
+def test_forward_shapes_carry_their_mode_and_planes():
+    """Each forward shape names its mode: the dot product at C=32, and L1 at
+    MVDepthNet's and GP-MVS's RGB shape with their 0.5-50 m planes, whose
+    bound is by bytes, about 24 MB (the small-channel kernel's case)."""
+    modes = {name: entry[2] for name, entry in bench.SHAPES["forward"].items()}
+    assert modes == {"online": True, "training": True, "640x480": True, "baselines_l1": False}
+    assert all(entry[2] for entry in bench.SHAPES["backward"].values())
+    shape, weights, _, depths = bench.SHAPES["forward"]["baselines_l1"]
+    assert (shape, weights, depths) == ((1, 2, 3, 256, 320, 64), None, (0.5, 50.0))
+    ref, meas, mats, w = bench.case_inputs("forward", "baselines_l1", device="cpu")
+    want = measure.sweep_case(shape, depths=depths, device="cpu")
+    for got, expect in zip((ref, meas, mats, w), want):
+        assert torch.equal(got, expect)
+    # the planes span 0.5-50 m, not the default 0.25-20 m
+    near = measure.sweep_case(shape, device="cpu")[2]
+    assert not torch.equal(mats, near)
+    bound = measure.sweep_bound(ref, meas, mats, w)
+    assert bound["bound_by"] == "bytes"
+    assert bound["bytes"] == 4 * (256 * 320 * 3 * 3 + 2 * 64 * 9 + 2 + 64 * 256 * 320)
+    # the mode reaches the plain version: a matrix that undoes the (W-1)/W
+    # fold samples every pixel at itself, so the L1 cost is
+    # sum_v w_v sum_c |ref - meas_v|
+    ref, meas, mats, w = measure.sweep_case((1, 2, 3, 8, 8, 4), device="cpu")
+    unfold = torch.diag(torch.tensor([8 / 7, 8 / 7, 1.0])).expand_as(mats).contiguous()
+    got = bench.plain("forward", (ref, meas, unfold, w), dot=False)[0]
+    want = sum(w[0, v] * (ref[0] - meas[0, v]).abs().sum(-1) for v in range(2))
+    torch.testing.assert_close(got[0], want.expand(4, 8, 8), rtol=0, atol=1e-5)
 
 
 def test_binned_share_follows_the_tap_boxes(monkeypatch):

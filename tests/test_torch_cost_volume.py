@@ -3,11 +3,13 @@ JAX package on the same numpy inputs.
 
 The plain PyTorch version of the plane-sweep kernel is held to the Pallas
 kernels in interpret mode (K1 where the band covers every row's span, K2 on
-extreme roll and behind-camera geometry) and to the JAX gather path with a
-masked view, C=30 and L1 mode. Tolerance 5e-4 absolute, the JAX kernel
-tests' own: it covers the (W-1)/W coordinate fold against the
-normalised-grid route and the order of summation. The CUDA kernel itself is
-compared with the plain version on the card in test_torch_cuda.py.
+extreme roll and behind-camera geometry; dot mode at C=8, and L1 mode at the
+baselines' C=3 and at C=1, the channel counts the CUDA kernel's
+small-channel variant takes) and to the JAX gather path with a masked view,
+C=30 and L1 mode. Tolerance 5e-4 absolute, the JAX kernel tests' own: it
+covers the (W-1)/W coordinate fold against the normalised-grid route and
+the order of summation. The CUDA kernel itself is compared with the plain
+version on the card in test_torch_cuda.py.
 """
 
 import numpy as np
@@ -71,13 +73,16 @@ def test_build_plane_matrices_matches_jax(rng):
                                np.asarray(jcv.inverse_depth_planes(0.25, 20.0, P)), rtol=1e-7)
 
 
-@pytest.mark.parametrize("euler,t", [
-    ([0, 0, 0], [0.12, 0.0, 0.0]),    # lateral
-    ([2, 3, 1], [0.12, 0.03, 0.02]),  # typical keyframe motion
-    ([0, 0, 4], [0.05, 0.0, 0.1]),    # roll + forward
+@pytest.mark.parametrize("euler,t,c,dot_product", [
+    pytest.param([0, 0, 0], [0.12, 0.0, 0.0], C, True, id="euler0-t0"),    # lateral
+    pytest.param([2, 3, 1], [0.12, 0.03, 0.02], C, True, id="euler1-t1"),  # typical keyframe motion
+    pytest.param([0, 0, 4], [0.05, 0.0, 0.1], C, True, id="euler2-t2"),    # roll + forward
+    pytest.param([2, 3, 1], [0.12, 0.03, 0.02], 3, False, id="l1_c3_typical"),  # the RGB sweep
+    pytest.param([0, 0, 4], [0.05, 0.0, 0.1], 3, False, id="l1_c3_roll_forward"),
+    pytest.param([0, 0, 0], [0.12, 0.0, 0.0], 1, False, id="l1_c1_lateral"),
 ])
-def test_plain_sweep_matches_pallas_band_kernel(rng, euler, t):
-    ref, meas, ref_pose, poses = _inputs(rng, euler, t)
+def test_plain_sweep_matches_pallas_band_kernel(rng, euler, t, c, dot_product):
+    ref, meas, ref_pose, poses = _inputs(rng, euler, t, c=c)
     mats = _jax_mats(ref_pose, poses, _K())
     band = 16
     spans = [float(jk.max_row_span(m, H, W, band)) for m in mats]
@@ -85,24 +90,30 @@ def test_plain_sweep_matches_pallas_band_kernel(rng, euler, t):
     weights = np.array([0.6, 0.4], np.float32)
     want = jk.pallas_plane_sweep_multiview(
         jnp.asarray(ref), jnp.asarray(meas), mats, jnp.asarray(weights),
-        interpret=True, band_h=band)
-    got = _port_sweep(ref, meas, mats, weights)
+        interpret=True, band_h=band, dot_product=dot_product)
+    got = _port_sweep(ref, meas, mats, weights, dot_product)
     assert tps.launch_count == 0  # CPU tensors take the plain version
     assert got.shape == (P, H, W)
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
 
 
-@pytest.mark.parametrize("euler,t", [
-    ([0, 0, 35], [0.1, 0.0, 0.0]),   # extreme roll: span beyond every band
-    ([0, 120, 0], [0.1, 0.0, 2.0]),  # most samples behind the camera
+@pytest.mark.parametrize("euler,t,c,dot_product", [
+    # extreme roll: span beyond every band
+    pytest.param([0, 0, 35], [0.1, 0.0, 0.0], C, True, id="euler0-t0"),
+    # most samples behind the camera
+    pytest.param([0, 120, 0], [0.1, 0.0, 2.0], C, True, id="euler1-t1"),
+    pytest.param([0, 0, 35], [0.1, 0.0, 0.0], 3, False, id="l1_c3_extreme_roll"),
+    pytest.param([0, 120, 0], [0.1, 0.0, 2.0], 3, False, id="l1_c3_behind_camera"),
+    pytest.param([0, 120, 0], [0.1, 0.0, 2.0], 1, False, id="l1_c1_behind_camera"),
 ])
-def test_plain_sweep_matches_pallas_dyn_kernel(rng, euler, t):
-    ref, meas, ref_pose, poses = _inputs(rng, euler, t)
+def test_plain_sweep_matches_pallas_dyn_kernel(rng, euler, t, c, dot_product):
+    ref, meas, ref_pose, poses = _inputs(rng, euler, t, c=c)
     mats = _jax_mats(ref_pose, poses, _K())
     weights = np.array([0.6, 0.4], np.float32)
     want = jk.pallas_plane_sweep_multiview_dyn(
-        jnp.asarray(ref), jnp.asarray(meas), mats, jnp.asarray(weights), interpret=True)
-    got = _port_sweep(ref, meas, mats, weights)
+        jnp.asarray(ref), jnp.asarray(meas), mats, jnp.asarray(weights), interpret=True,
+        dot_product=dot_product)
+    got = _port_sweep(ref, meas, mats, weights, dot_product)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
 

@@ -6,7 +6,9 @@ run as ``python -m pytest --noconftest -q tests/test_torch_cuda.py`` from
 the repo root. Forward tolerance, absolute (coordinate fold and order of
 summation): 5e-4 for the dot cost, the JAX kernel tests' own; 2e-3 for the
 L1 cost, which sums over the channels where the dot cost averages (measured
-7.7e-4 at C=32, 7.1e-4 at the baselines' C=3 with a view masked).
+7.7e-4 at C=32, 7.1e-4 at the baselines' C=3 with a view masked). C <= 4
+takes the kernel's small-channel variant (one thread a pixel), held at the
+same limits at C = 1-4 in both modes.
 Backward: tests/test_pallas_vjp.py's atol 2e-4 * max(|grad|, 1) against
 autograd through the plain version.
 """
@@ -69,7 +71,14 @@ def _case(seed, euler, t, c, device, h=H, w=W):
     ([2, 3, 1], [0.12, 0.03, 0.02], 64, [0.5, 0.5], True),    # C = 64: two loads a lane
     ([2, 3, 1], [0.12, 0.03, 0.02], 32, [0.5, 0.5], False),   # L1
     ([0, 120, 0], [0.1, 0.0, 2.0], 30, [1.0, 0.0], False),    # L1, C=30, masked
-])
+] + [  # the small-channel variant: C = 1-4 in both modes
+    pytest.param(euler, t, c, weights, dot, id=f"c{c}_{'dot' if dot else 'l1'}_{name}")
+    for c in (1, 2, 3, 4) for dot in (True, False)
+    for name, euler, t, weights in (
+        ("typical", [2, 3, 1], [0.12, 0.03, 0.02], [0.5, 0.5]),
+        ("roll35", [0, 0, 35], [0.1, 0.0, 0.0], [0.5, 0.5]),
+        ("behind_camera", [0, 120, 0], [0.1, 0.0, 2.0], [0.5, 0.5]),
+        ("masked_view", [2, 3, 1], [0.12, 0.03, 0.02], [1.0, 0.0]))])
 def test_kernel_matches_plain(cuda_device, euler, t, c, weights, dot_product):
     ref, meas, mats = _case(0, euler, t, c, cuda_device)
     w = torch.tensor([weights], dtype=torch.float32, device=cuda_device)
@@ -98,13 +107,20 @@ def test_kernel_at_640x480_frames(cuda_device, c):
 
 @pytest.mark.parametrize("shape", [(3, 1, 32, 37, 45, 11), (2, 5, 8, 16, 70, 3),
                                    (1, 1, 132, 20, 33, 9), (1, 3, 13, 9, 40, 20),
-                                   (2, 120, 8, 9, 33, 10)],
-                         ids=["ragged_tiles", "many_views", "c132", "c13", "views_over_launches"])
+                                   (2, 120, 8, 9, 33, 10), (3, 1, 3, 37, 45, 11),
+                                   (1, 2, 3, 255, 317, 64), (2, 120, 3, 9, 33, 10),
+                                   (3, 1, 1, 37, 45, 11), (2, 5, 2, 16, 70, 3),
+                                   (1, 3, 4, 37, 45, 20)],
+                         ids=["ragged_tiles", "many_views", "c132", "c13", "views_over_launches",
+                              "c3_ragged_tiles", "c3_255x317", "c3_views_over_launches",
+                              "c1_ragged_tiles", "c2_many_views", "c4_ragged_tiles"])
 def test_kernel_on_ragged_shapes(cuda_device, shape):
     """Tiles and plane chunks that the image and the planes do not fill, more
     views than the online path has (and more than one launch's shared memory
     holds, summed over three launches, each counted), and channel counts that
-    leave a lane's last load short or take the loop over any C."""
+    leave a lane's last load short or take the loop over any C; the same
+    for the small-channel variant (C <= 4), whose launches are counted
+    alike."""
     from dvmvs_tpu_torch.ops.sweep_measure import sweep_case
 
     B, V_, C, H_, W_, P_ = shape
@@ -125,10 +141,13 @@ def test_kernel_on_ragged_shapes(cuda_device, shape):
         assert (got - want).abs().max().item() <= ATOL[dot] * (max(C / 32, 1) if not dot else 1)
 
 
-def test_kernel_takes_views_at_unaligned_offsets(cuda_device):
+@pytest.mark.parametrize("c,dot_product", [(32, True), (3, False), (3, True)],
+                         ids=["c32_dot", "c3_l1", "c3_dot"])
+def test_kernel_takes_views_at_unaligned_offsets(cuda_device, c, dot_product):
     """Contiguous views that start one float into their storage cannot use
-    16-byte loads; the kernel must fall back to scalar loads."""
-    ref, meas, mats = _case(1, [2, 3, 1], [0.12, 0.03, 0.02], 32, cuda_device)
+    16-byte loads; the kernel must fall back to scalar loads (C=32). The
+    small-channel variant (C=3) loads scalars at any offset."""
+    ref, meas, mats = _case(1, [2, 3, 1], [0.12, 0.03, 0.02], c, cuda_device)
     w = torch.full((1, V), 0.5, device=cuda_device)
     shifted = []
     for t in (ref, meas):
@@ -136,10 +155,12 @@ def test_kernel_takes_views_at_unaligned_offsets(cuda_device):
         buf[1:] = t.reshape(-1)
         shifted.append(buf[1:].view(t.shape))
     assert shifted[0].is_contiguous() and shifted[0].data_ptr() % 16 != 0
-    want = tps.plane_sweep_multiview(ref, meas, mats, w)
-    got = tps.plane_sweep_multiview(shifted[0], shifted[1], mats, w)
+    want = tps.plane_sweep_multiview(ref, meas, mats, w, dot_product)
+    got = tps.plane_sweep_multiview(shifted[0], shifted[1], mats, w, dot_product)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-5
+    plain = tps.plane_sweep_multiview_plain(shifted[0], shifted[1], mats, w, dot_product)
+    assert (got - plain).abs().max().item() <= ATOL[dot_product]
 
 
 def test_kernel_rejects_cpu_mix(cuda_device):
