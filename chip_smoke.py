@@ -63,7 +63,8 @@ every path of the port:
     kernel (``csrc/dlt_solve.cu``) against its plain version
     (``torch.linalg.svd``) on DELTAS's systems of those keyframes and on a
     seeded batch with masked views, on the points DELTAS keeps and on every
-    homogeneous solution, and its time beside its bound;
+    homogeneous solution, and its time beside one near-empty kernel's (the
+    launch floor) and its bound;
   - data parallel over NCCL at world size 1 (``parallel/mesh.py``):
     ``dryrun_multichip(1)``, one pairnet (B=14) and one fusionnet (B=4,
     S=8) step at 256x256 through the data-parallel path against the plain
@@ -796,9 +797,10 @@ def dlt_phase(torch, card, clock, baselines):
     DELTAS's systems of the [baselines] keyframes (by seed-0 weights, as the
     estimators there) and on a seeded batch (``sweep_measure.dlt_case``), by
     ``dlt_gaps`` (DLT_TOL's comment); then its time at one keyframe's
-    systems, the main path's shape, beside its bound (``dlt_bound``), the
-    plain version's and torch.linalg.svd's (the same call). Returns the
-    numbers for the JSON line."""
+    systems, the main path's shape, beside one near-empty kernel's in the
+    same timer (the launch floor), its bound (``dlt_bound``), the plain
+    version's and torch.linalg.svd's (the same call). Returns the numbers
+    for the JSON line."""
     from dvmvs_tpu_torch.baselines.deltas import Deltas, dlt_points, dlt_system
     from dvmvs_tpu_torch.ops import dlt
     from dvmvs_tpu_torch.ops.sweep_measure import (SINGLE_LAUNCH_TIMER, TIMER, dlt_bound,
@@ -840,6 +842,7 @@ def dlt_phase(torch, card, clock, baselines):
             raise AssertionError(f"[dlt] the kernel disagrees with its plain version on {name}")
     A = scene[:1].contiguous()
     bound = dlt_bound(A)
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0))
     kernel_ms = time_ms(lambda: dlt.launch(A))
     plain_ms = time_ms(lambda: dlt.dlt_solve_plain(A))
     library_ms = time_ms(lambda: torch.linalg.svd(A, full_matrices=False))
@@ -848,12 +851,14 @@ def dlt_phase(torch, card, clock, baselines):
     plain_single_ms = single_launch_ms(lambda: dlt.dlt_solve_plain(A))
     print(f"[dlt] time at one keyframe's systems {tuple(A.shape)}: kernel {kernel_ms:.4f} ms "
           f"(again {kernel_ms_2:.4f}; {TIMER}), single launches {single_ms:.4f} ms "
-          f"({SINGLE_LAUNCH_TIMER}); plain (torch.linalg.svd) {plain_ms:.4f} ms, single "
-          f"{plain_single_ms:.4f} ms; torch.linalg.svd again {library_ms:.4f} ms; bound "
-          f"{bound['bound_ms'] * 1e3:.4f} us by {bound['bound_by']} ({bound['bytes']} bytes, "
-          f"{bound['flops']} float64 flops) ({lap(clock):.1f} s)", flush=True)
+          f"({SINGLE_LAUNCH_TIMER}); launch floor (one near-empty kernel, the same timer) "
+          f"{floor_ms:.4f} ms; bound {bound['bound_ms'] * 1e3:.4f} us by {bound['bound_by']} "
+          f"({bound['bytes']} bytes, {bound['flops']} float64 flops); plain "
+          f"(torch.linalg.svd) {plain_ms:.4f} ms, single {plain_single_ms:.4f} ms; "
+          f"torch.linalg.svd again {library_ms:.4f} ms ({lap(clock):.1f} s)", flush=True)
     report.update(shape=list(A.shape), ms=kernel_ms, ms_again=kernel_ms_2,
-                  ms_single_launch=single_ms, plain_ms=plain_ms, plain_ms_single=plain_single_ms,
+                  ms_single_launch=single_ms, launch_floor_ms=floor_ms,
+                  plain_ms=plain_ms, plain_ms_single=plain_single_ms,
                   library_ms=library_ms, bound=bound,
                   max_abs_err=max(report[n]["plain"]["kept_abs_m"] for n in ("scene", "seeded")),
                   max_abs_err_float64=max(report[n]["float64"]["kept_abs_m"]
@@ -1757,6 +1762,7 @@ def main():
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
+    from dvmvs_tpu_torch.apps.bench_plane_sweep import ptxas_report
     from dvmvs_tpu_torch.apps.engine import InferenceEngine
     from dvmvs_tpu_torch.apps.profile_step import synthetic_stream
     from dvmvs_tpu_torch.apps.run_testing_online import predict_stream
@@ -1782,12 +1788,11 @@ def main():
     # 2. build: one nvcc per source, all at once
     t0 = time.perf_counter()
     logs = cuda_build.load_all(ps.KERNELS + dlt.KERNELS)
-    regs = {name: sorted({line.split("Used ")[1].split(",")[0] for line in log.splitlines()
-                          if "Used " in line}) for name, log in logs.items()}
+    ptxas = {name: ptxas_report(log) for name, log in logs.items()}
     print(f"[build] {', '.join(f'{n}.cu' for n in logs)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s (ptxas: "
-          + "; ".join(f"{n}: {', '.join(r) or 'cached'}" for n, r in regs.items()) + ")",
-          flush=True)
+          + "; ".join(f"{n}: {', '.join(f'{k} {v}' for k, v in r.items()) or 'cached'}"
+                      for n, r in ptxas.items()) + ")", flush=True)
     clock = [time.perf_counter()]
 
     # 3. kernel vs plain version at the path's shapes
@@ -2186,6 +2191,8 @@ def main():
         "ms_single_launch": solve["ms_single_launch"],
         "plain_ms_single_launch": solve["plain_ms_single"],
         "ms_in_graph": baseline_graphs["deltas"]["graphs"]["dlt_solve_ms"],
+        "launch_floor_ms": solve["launch_floor_ms"],
+        "ptxas": ptxas["dlt_solve"],
         "gaps": {k: solve[k] for k in ("scene", "seeded")},
     }], "graphs": graphs, "baseline_graphs": {
         name: {k: v for k, v in r.items() if k in ("depth_gap", "bit_equal", "captured_steps",

@@ -76,8 +76,9 @@ OUTPUTS = {"forward": ("cost",), "backward": ("d_ref", "d_meas")}
 
 
 def _short_name(mangled: str) -> str:
-    """``..._kernelILi4ELi2ELb1EEEv...`` -> ``plane_sweep_kernel<4,2,1>``."""
-    m = re.search(r"(plane_sweep(?:_bwd|_small)?_kernel)I(.*?)EEv", mangled)
+    """``..._kernelILi4ELi2ELb1EEEv...`` -> ``plane_sweep_kernel<4,2,1>``
+    (also ``dlt_solve_kernel<8>``)."""
+    m = re.search(r"((?:plane_sweep(?:_bwd|_small)?|dlt_solve)_kernel)I(.*?)EEv", mangled)
     return f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>" if m else mangled
 
 

@@ -6,12 +6,12 @@ dvmvs_tpu/baselines/deltas.py::triangulate_dlt).
 R >= 1 rows each, and returns the right singular vectors Vh (..., 4, 4) as
 rows in descending singular value. A CPU tensor goes to ``dlt_solve_plain``,
 ``torch.linalg.svd(A, full_matrices=False)[2]``; a CUDA tensor launches
-``csrc/dlt_solve.cu`` (Givens QR, then one-sided Jacobi, in double
-precision, one thread a system) on the current stream. The kernel makes no
-host synchronisation, so a CUDA graph captures it; ``torch.linalg.svd``
-copies its convergence info to the host and cannot be captured. The two may
-give a vector the other sign: the points of ``baselines/deltas.py::
-dlt_points`` do not depend on it.
+``csrc/dlt_solve.cu`` on the current stream: Householder QR, then one-sided
+Jacobi in parallel order, in double precision, four lanes a system (one a
+column), 16 systems a block. The kernel makes no host synchronisation, so a
+CUDA graph captures it; ``torch.linalg.svd`` copies its convergence info to
+the host and cannot be captured. The two may give a vector the other sign:
+the points of ``baselines/deltas.py::dlt_points`` do not depend on it.
 """
 
 from __future__ import annotations
@@ -33,13 +33,18 @@ def dlt_solve_plain(A: torch.Tensor) -> torch.Tensor:
     return torch.linalg.svd(A, full_matrices=False)[2]
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    """The kernel's C entry point, built and loaded once per process."""
-    fn = cuda_build.load("dlt_solve").dlt_solve
+def bind(lib: ctypes.CDLL):
+    """The kernel's C entry point in a loaded library, typed."""
+    fn = lib.dlt_solve
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point, built and loaded once per process."""
+    return bind(cuda_build.load("dlt_solve"))
 
 
 def _check(A: torch.Tensor):
@@ -53,14 +58,15 @@ def _check(A: torch.Tensor):
         raise ValueError(f"dlt_solve: unsupported device {A.device}")
 
 
-def launch(A: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on a checked CUDA tensor on the current stream;
-    returns Vh."""
+def launch(A: torch.Tensor, fn=None) -> torch.Tensor:
+    """Launch the kernel (or ``fn``, the entry point of another build of a
+    source of it, from ``bind``) on a checked CUDA tensor on the current
+    stream; returns Vh."""
     n = A.numel() // (A.shape[-2] * 4)
     vh = torch.empty(A.shape[:-2] + (4, 4), dtype=torch.float32, device=A.device)
     with torch.cuda.device(A.device):
-        err = _entry()(A.data_ptr(), vh.data_ptr(), n, A.shape[-2],
-                       torch.cuda.current_stream(A.device).cuda_stream)
+        err = (fn or _entry())(A.data_ptr(), vh.data_ptr(), n, A.shape[-2],
+                               torch.cuda.current_stream(A.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dlt_solve kernel launch failed: cudaError {err}")
     return vh

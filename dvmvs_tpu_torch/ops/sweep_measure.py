@@ -29,11 +29,11 @@ OTHER_VIEW = ((1, 2, 0.5), (0.1, 0.02, 0.0))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12  # the same data sheet: float64 outside the tensor cores
-# float64 flops of the least DLT solve (dlt_bound), counted as in
-# csrc/dlt_solve.cu: a non-zero row through the Givens QR (per column k a
-# hypot, two divisions and 6 a column from k on); a check of the six column
-# pairs that rotates none (three 4-long dot products and the test each); the
-# norms and ranks
+# float64 flops of the least DLT solve (dlt_bound), whatever implements it:
+# folding a non-zero row into a 4x4 upper triangle (per column k, 6 for the
+# pivot's length and two quotients, and 6 for each column from k on);
+# checking the triangle's six column pairs once and finding them orthogonal
+# (three 4-long dot products and the test each); the norms and ranks
 DLT_ROW_FLOPS, DLT_CHECK_FLOPS, DLT_TAIL_FLOPS = 84, 6 * 28, 80
 # flops per channel of one in-range (pixel, plane, view) sample: forward, 4
 # FMA to interpolate and 1 for the dot; backward, 4 FMA into d_ref, 4

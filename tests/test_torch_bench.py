@@ -1,12 +1,14 @@
-"""The arithmetic of ops/sweep_measure.py and apps/bench_plane_sweep.py, on
-the CPU: the bound counts the bytes every input and output needs once and
-the flops of the in-range samples only, and the ptxas report pairs each
-kernel with its registers and spills."""
+"""The arithmetic of ops/sweep_measure.py, apps/bench_plane_sweep.py and
+apps/bench_dlt.py, on the CPU: the bound counts the bytes every input and
+output needs once and the flops of the in-range samples only, the ptxas
+report pairs each kernel with its registers and spills, and the DLT bench's
+check ignores a vector's sign."""
 
 import numpy as np
 import pytest
 import torch
 
+from dvmvs_tpu_torch.apps import bench_dlt
 from dvmvs_tpu_torch.apps import bench_plane_sweep as bench
 from dvmvs_tpu_torch.ops import sweep_measure as measure
 
@@ -79,6 +81,42 @@ def test_ptxas_report_pairs_kernels_with_registers_and_spills():
         "plane_sweep_small_kernel<3,0>": "38 registers, 0 bytes spilled",
         "_Z5otherv": "8 registers, 0 bytes spilled"}
     assert bench.ptxas_report("") == {}
+
+
+def test_ptxas_report_names_the_dlt_kernels():
+    """The DLT solve's kernel at each chunk height (chip_smoke.py [build]
+    reports them)."""
+    prefix = "_ZN45_GLOBAL__N__0d700ce6_12_dlt_solve_cu_5d7a3b41"
+    log = "\n".join([
+        f"ptxas info    : Function properties for {mangled}\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 0 barriers, 392 bytes cmem[0]"
+        for mangled, regs, spill in (
+            (f"{prefix}16dlt_solve_kernelILi8EEEvPKfPfli", 64, 0),
+            (f"{prefix}16dlt_solve_kernelILi16EEEvPKfPfli", 92, 0))])
+    assert bench.ptxas_report(log) == {
+        "dlt_solve_kernel<8>": "64 registers, 0 bytes spilled",
+        "dlt_solve_kernel<16>": "92 registers, 0 bytes spilled"}
+
+
+def test_dlt_bench_gap_ignores_the_sign_and_sees_a_swap():
+    """The DLT bench's check: the plain solve against float64 is near 0
+    whatever the sign of each homogeneous solution, and a Vh whose last two
+    rows are swapped is far from it."""
+    from dvmvs_tpu_torch.baselines.deltas import dlt_system
+    from dvmvs_tpu_torch.ops import dlt
+
+    proj, points, conf = (torch.from_numpy(a) for a in measure.dlt_case(seed=0, B=1, Kn=16))
+    A = dlt_system(proj, points, conf).contiguous()
+    want = dlt.dlt_solve_plain(A.double())
+    vh = dlt.dlt_solve_plain(A)
+    flipped = vh * torch.tensor([1.0, 1.0, 1.0, -1.0])[:, None]
+    assert bench_dlt.homogeneous_gap(vh, want) < 1e-4
+    assert bench_dlt.homogeneous_gap(flipped, want) == bench_dlt.homogeneous_gap(vh, want)
+    assert bench_dlt.homogeneous_gap(vh[..., [0, 1, 3, 2], :], want) > 0.1
+    args = bench_dlt.parse_args(["--baseline", "a.cu", "--baseline", "b.cu", "--batch", "8"])
+    assert (args.baseline, args.batch) == (["a.cu", "b.cu"], 8)
+    assert bench.turns(args.baseline) == ["a.cu", "b.cu", "current", "current", "b.cu", "a.cu"]
 
 
 def test_pose_matches_scipy():

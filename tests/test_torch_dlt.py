@@ -205,3 +205,117 @@ def test_kernel_on_degenerate_systems(cuda_device):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, dlt.dlt_solve(A.flip(0)))
+
+
+# Shapes the kernel's layout (four lanes a system, 16 systems a block, the
+# rows through registers, 8 a chunk for R <= 8 and 16 otherwise, each chunk
+# after the first stacked under the triangle so far) can get wrong:
+# (systems, rows). Rows 1 and 2 leave the
+# triangle short; 6 is DELTAS's default (V=2) and 10 the five-camera case;
+# 16 fills the first chunk, 17 and 40 take a second and a third; 62 is 30
+# measurement frames, a full keyframe buffer. 37 systems end inside a block
+# and a warp; one system; DELTAS's batch of 8 keyframes; about 10^5.
+LAYOUTS = {
+    "rows1": (37, 1), "rows2": (37, 2), "rows6": (37, 6), "rows10": (37, 10),
+    "rows16": (37, 16), "rows17": (37, 17), "rows40": (37, 40), "rows62": (37, 62),
+    "one_system": (1, 6), "one_block_and_one": (17, 6), "deltas_8x512": ((8, 512), 6),
+    "many": (100003, 6),
+}
+
+
+def layout_systems(systems, rows, seed=0):
+    """Seeded float32 systems (*systems, rows, 4), Gaussian at a log-uniform
+    scale of 1e-3-1e3 a system; by flat index, (i + 4) % 8: 0 zero, 1 every
+    row from the third on zero (a masked view), 2 one row (the rest zero), 3
+    its middle row zero, the others full (so is a single system)."""
+    shape = (systems,) if isinstance(systems, int) else systems
+    n = int(np.prod(shape))
+    rs = np.random.RandomState(seed)
+    A = rs.randn(n, rows, 4) * 10.0 ** rs.uniform(-3, 3, (n, 1, 1))
+    kind = (np.arange(n) + 4) % 8
+    A[kind == 0] = 0.0
+    A[kind == 1, 2:] = 0.0
+    A[kind == 2, 1:] = 0.0
+    A[kind == 3, rows // 2] = 0.0
+    return torch.from_numpy(A.astype(np.float32).reshape(shape + (rows, 4)))
+
+
+def svd_gaps(A, vh):
+    """How far vh (..., 4, 4) is from the right singular vectors of A (...,
+    R, 4) by torch.linalg.svd in float64, each gap over the system's largest
+    singular value s_max (squared for the Gram matrix): the columns' norms
+    of A Vh^T against the singular values, their Gram matrix's largest
+    off-diagonal (0 for singular vectors, whatever the basis of a repeated
+    value), and each vector against float64's up to its sign where its
+    singular value stands more than 1e-2 s_max from its neighbours. Also
+    Vh Vh^T against the identity, and whether the zero systems gave it."""
+    A, vh = A.double().reshape(-1, *A.shape[-2:]), vh.double().reshape(-1, 4, 4)
+    assert torch.isfinite(vh).all()
+    _, s, want = torch.linalg.svd(A, full_matrices=False)
+    s = torch.cat([s, s.new_zeros(len(s), 4 - s.shape[1])], 1)  # R < 4: the rest are zero
+    if want.shape[1] < 4:
+        want = torch.linalg.svd(torch.cat([A, A.new_zeros(len(A), 4 - A.shape[1], 4)], 1))[2]
+    smax = s[:, :1]
+    live = smax[:, 0] > 0
+    eye = torch.eye(4, dtype=vh.dtype, device=vh.device)
+    B = A @ vh.transpose(-1, -2)
+    gram = B.transpose(-1, -2) @ B
+    off = (gram - torch.diag_embed(torch.diagonal(gram, dim1=-2, dim2=-1))).abs().amax((-2, -1))
+    norms = torch.linalg.norm(B, dim=-2)
+    spaced = torch.full_like(s, float("inf"))
+    spaced[:, 1:] = (s[:, 1:] - s[:, :-1]).abs()
+    spaced[:, :-1] = torch.minimum(spaced[:, :-1], (s[:, 1:] - s[:, :-1]).abs())
+    alone = (spaced > 1e-2 * smax) & live[:, None]
+    sign = torch.sign((vh * want).sum(-1, keepdim=True))
+    vec = ((vh - sign * want).abs().amax(-1) * alone).amax() if alone.any() else vh.new_zeros(())
+    def worst(x):
+        return float(x[live].max()) if live.any() else 0.0
+
+    return {"norms": worst((norms - s).abs() / smax.clamp_min(1e-300)),
+            "gram": worst(off / smax[:, 0].clamp_min(1e-300) ** 2),
+            "vectors": float(vec), "alone": int(alone.sum()),
+            "orthonormal": float((vh @ vh.transpose(-1, -2) - eye).abs().max()),
+            "zero_is_identity": bool((vh[~live] == eye).all())}
+
+
+def assert_svd(A, vh):
+    """svd_gaps within this file's 1e-4 (module doc); orthonormal within
+    1e-5, as test_kernel_on_degenerate_systems."""
+    g = svd_gaps(A, vh)
+    print(g)
+    assert g["norms"] <= HOM_TOL and g["gram"] <= HOM_TOL and g["vectors"] <= HOM_TOL
+    assert g["orthonormal"] <= 1e-5 and g["zero_is_identity"] and g["alone"] > 0
+
+
+def test_svd_gaps_take_the_plain_solve_and_catch_a_fault():
+    """The card tests' check on the plain version: torch.linalg.svd's Vh
+    passes at the layouts' row counts from 4 on (below 4 it has R rows, the
+    kernel always 4); Vh with two rows swapped, or one rotated a little,
+    does not."""
+    for name in ("rows6", "rows10", "rows17", "rows62"):
+        A = layout_systems(37, LAYOUTS[name][1])
+        assert_svd(A, dlt.dlt_solve(A))
+    A = layout_systems(37, 6)
+    vh = dlt.dlt_solve(A)
+    swapped = vh[:, [1, 0, 2, 3]]
+    assert svd_gaps(A, swapped)["norms"] > 1e-2
+    c, s = np.cos(1e-3), np.sin(1e-3)
+    turn = torch.tensor([[c, -s, 0, 0], [s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+                        dtype=torch.float32)
+    g = svd_gaps(A, turn @ vh)
+    assert g["gram"] > HOM_TOL and g["vectors"] > HOM_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_kernel_layouts_on_the_card(cuda_device, name):
+    """The kernel at each of LAYOUTS against torch.linalg.svd in float64 by
+    svd_gaps, with zero systems, a masked view, one row and a zero middle
+    row among them; two launches bit-equal."""
+    systems, rows = LAYOUTS[name]
+    A = layout_systems(systems, rows).to(cuda_device)
+    vh = dlt.dlt_solve(A)
+    again = dlt.dlt_solve(A)
+    torch.cuda.synchronize()
+    assert vh.shape == A.shape[:-2] + (4, 4) and torch.equal(vh, again)
+    assert_svd(A, vh)
