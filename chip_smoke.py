@@ -101,6 +101,14 @@ every path of the port:
     reconstructed by ``run_tsdf`` and ``point_cloud``, and two fusionnet
     training steps warm-started from the pairnet msgpack.
 
+  - arithmetic ([precision]): torch's TF32 defaults are left as they are,
+    so every phase shows that the entry points pin IEEE float32 themselves
+    (``utils/precision.py``); [precision] holds the online loop, an
+    MVDepthNet ``predict`` and a graphed training step, each run in those
+    defaults, bit for bit against the same step under an explicit IEEE
+    setting, and shows that the pin bypassed (the step in TF32) breaks that
+    limit, with both modes' times.
+
 Each path runs with the launch counts set to 0 just before it and read just
 after. Each phase prints its lines; any failure raises, so the exit code is
 non-zero. It imports nothing of the JAX package, nor jax, nor OpenCV.
@@ -212,6 +220,17 @@ BASELINE_ROUNDS = 2
 # (sweep_measure.dlt_case: masked views, near rank-deficient and noise-free
 # systems) has DLT_BATCH elements of DELTAS's 512 keypoints and 3 cameras
 DLT_TOL, DLT_BATCH = 1e-4, 8
+
+# [precision]: the quantity on which a step in TF32 must break REF_RTOL
+# (apps/bench_precision.py's names). Seeded weights keep the depths nearly
+# flat (MVDepthNet's within about 2% of 1 m), so MVDepthNet's depth is held
+# against its spread (max - min), the cost volumes and the training step's
+# metrics against their largest value. Measured TF32 against IEEE (NVIDIA
+# H100 80GB HBM3, 700 W): the online cost volume 7.5e-5, MVDepthNet's depth
+# 1.3e-3 of its spread (2.6e-5 of its largest value), the training metrics
+# 8.4e-4
+PRECISION_SHOWS = {"online": "cost_volume_max_rel", "mvdepthnet": "depth_over_spread",
+                   "train": "metrics_max_rel"}
 
 PAIR_BATCH = 14  # pairnet's training batch
 # [train-graphs]: steps a path, each taken from the eager path's state before
@@ -634,6 +653,7 @@ def baseline_phases(torch, ps, device, card, clock, tmp):
     from dvmvs_tpu_torch.apps.simulate_keyframe_buffer import simulate_dataset
     from dvmvs_tpu_torch.baselines import BASELINE_REGISTRY
     from dvmvs_tpu_torch.data.scene_folders import write_scene_folders
+    from dvmvs_tpu_torch.utils.precision import ieee_float32
     from dvmvs_tpu_torch.utils.results import InferenceTimer
 
     dataset = "synth640_baselines"
@@ -677,7 +697,7 @@ def baseline_phases(torch, ps, device, card, clock, tmp):
         if name == "deltas":
             # the first keyframe's inputs; the dense stages held with the
             # CPU's keypoints, the card's own top-k compared with the CPU's
-            with torch.inference_mode():
+            with torch.inference_mode(), ieee_float32():  # model methods, not a predict
                 want = cpu.model.stages(*cpu.inputs(*seen[0]))
                 own = est.model.stages(*est.inputs(*seen[0]))
                 forced = est.model.stages(*est.inputs(*seen[0]),
@@ -805,9 +825,10 @@ def dlt_phase(torch, card, clock, baselines):
     from dvmvs_tpu_torch.ops import dlt
     from dvmvs_tpu_torch.ops.sweep_measure import (SINGLE_LAUNCH_TIMER, TIMER, dlt_bound,
                                                    dlt_case, single_launch_ms, time_ms)
+    from dvmvs_tpu_torch.utils.precision import ieee_float32
 
     est = Deltas(device="cuda", seed=0, graphs=False)
-    with torch.inference_mode():
+    with torch.inference_mode(), ieee_float32():  # a model method, not a predict
         fronts = [est.model.front(*est.inputs(*kf)) for kf in baselines["deltas"]["inputs"]]
     scene = torch.cat([f["system"] for f in fronts])
     proj, points, conf = (torch.from_numpy(a).cuda() for a in dlt_case(seed=0, B=DLT_BATCH))
@@ -1755,6 +1776,56 @@ def proxy_phase(card, clock, tmp):
           + f" ({lap(clock):.1f} s) | {card}", flush=True)
 
 
+def precision_phase(torch, card, clock, stream):
+    """[precision]: the online fusionnet loop over the [main] stream (its
+    cost volumes read out of the graphs), MVDepthNet's ``predict`` over
+    seeded keyframes and a graphed fusionnet training step (B=4 S=8,
+    256x256; its metrics), each run three ways from fresh objects by
+    ``apps/bench_precision.py`` (once each, then one timed round): with
+    torch's TF32 defaults left as they are, which the entry points override
+    by pinning IEEE float32; under an explicit IEEE setting of the process;
+    and with the pin bypassed (``precision.unpinned``, a planted fault: the
+    step in TF32). The first way must equal the second bit for bit (at most
+    REF_RTOL on every quantity, a depth also against its spread); the
+    planted fault must break REF_RTOL on the quantity PRECISION_SHOWS names,
+    and every way must leave the process's mode as it found it. Returns each
+    path's gaps and times."""
+    from dvmvs_tpu_torch.apps import bench_precision as bp
+    from dvmvs_tpu_torch.apps.profile_step import synthetic_train_batch
+    from dvmvs_tpu_torch.utils import precision
+
+    defaults = precision.current()
+    if defaults["cudnn.conv"] != "tf32":
+        raise AssertionError(f"[precision] needs torch's TF32 convolutions as the process "
+                             f"default, found {defaults}")
+    host_batch = synthetic_train_batch(256, 4, 8)
+    paths = {"online": lambda: bp.online("fusionnet", stream),
+             "mvdepthnet": lambda: bp.baseline("mvdepthnet"),
+             "train": lambda: bp.train(host_batch)}
+    report = {}
+    for path, make in paths.items():
+        r = report[path] = bp.compare(make, rounds=1)
+        pinned, fault = r["gaps_to_ieee"]["defaults"], r["gaps_to_ieee"]["tf32"]
+        shows = PRECISION_SHOWS[path]
+        print(f"[precision] {path}: torch's defaults against explicit IEEE, gaps "
+              + ", ".join(f"{q} {v:.3e}" for q, v in pinned.items())
+              + f" (tol {REF_RTOL:g}); planted fault, the pin bypassed (TF32): "
+              + ", ".join(f"{q} {v:.3e}" for q, v in fault.items())
+              + f" (must exceed {REF_RTOL:g} on {shows}); median ms "
+              + ", ".join(f"{m} {t['median']:.3f}" for m, t in r["ms"].items())
+              + f" ({lap(clock):.1f} s) | {card}", flush=True)
+        if precision.current() != defaults:
+            raise AssertionError(f"[precision] {path}: the process mode was not restored: "
+                                 f"{precision.current()}")
+        if not max(pinned.values()) <= REF_RTOL:
+            raise AssertionError(f"[precision] {path}: with torch's TF32 defaults the step "
+                                 f"does not compute in IEEE float32")
+        if not fault[shows] > REF_RTOL:
+            raise AssertionError(f"[precision] {path}: the planted fault (the pin bypassed) "
+                                 f"did not break the limit on {shows}")
+    return report
+
+
 def main():
     start = time.perf_counter()
     import torch
@@ -1772,18 +1843,18 @@ def main():
     from dvmvs_tpu_torch.ops.sweep_measure import (SINGLE_LAUNCH_TIMER, TIMER, binned_share,
                                                    single_launch_ms, sweep_bound, sweep_case,
                                                    time_ms)
+    from dvmvs_tpu_torch.utils import precision
     from dvmvs_tpu_torch.utils.results import InferenceTimer
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout
     card = smi.strip().splitlines()[0]
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
+    # torch's TF32 defaults are left as they are: every entry point pins its
+    # own mode, which [precision] checks
     print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | {card} | "
-          f"torch {torch.__version__} cuda {torch.version.cuda} | cudnn.allow_tf32="
-          f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
-          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+          f"torch {torch.__version__} cuda {torch.version.cuda} | {precision.describe()}",
+          flush=True)
 
     # 2. build: one nvcc per source, all at once
     t0 = time.perf_counter()
@@ -1903,6 +1974,10 @@ def main():
           flush=True)
     if not rel <= REF_RTOL:
         raise AssertionError("card and CPU depths disagree")
+
+    # 6a. [precision] the steps in torch's TF32 defaults against an explicit
+    # IEEE setting, and with the pin bypassed (a planted fault)
+    arithmetic = precision_phase(torch, card, clock, (frames, poses, K))
 
     # 7. [bwd-compare] at the training shape and the cases around it: the
     # forward kernel (K3/K4 with V=1) and the backward kernel (K5/K6) against
@@ -2205,6 +2280,7 @@ def main():
         "parallel": {kind: {k: v for k, v in r.items() if k not in ("fwd", "bwd")}
                      for kind, r in parallel.items()},
         "train_graphs": train_graphs,
+        "precision": arithmetic,
         "real_data": {k: v for k, v in real.items() if k not in ("fwd", "bwd")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

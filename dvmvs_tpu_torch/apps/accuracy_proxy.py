@@ -44,6 +44,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from dvmvs_tpu_torch.utils.precision import describe
+
 METRIC_NAMES = ["abs", "abs_rel", "abs_inv", "sq_rel", "rmse", "d<1.25", "d<1.25^2", "d<1.25^3"]
 LOWER_BETTER = [True] * 5 + [False] * 3
 MODELS = ("pairnet", "fusionnet")
@@ -256,6 +258,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     args.out = os.path.abspath(args.out)  # the children run from the repo root
 
+    print(f"accuracy proxy: seeds {args.seeds} on {args.device}; {describe()}", flush=True)
     results_root = os.path.join(args.out, "results")
     if not args.report_only:
         root = make_corpus(args)

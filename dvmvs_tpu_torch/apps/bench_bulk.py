@@ -9,7 +9,8 @@ written as scene folders (``data/scene_folders.py``) and indexed by
 ``simulate_keyframe_buffer`` (nmeas 2). Every frame is decoded, cropped and
 resized to 320x256 once before any timing, and no ground truth is read, so
 the numbers are the device path and the driver, not the PNG decode. Seeded
-random weights (the work does not depend on them), ``TestConfig``, TF32 off.
+random weights (the work does not depend on them), ``TestConfig``, IEEE float32
+(the port's mode).
 
 Modes, on the eager path (``InferenceEngine(graphs=False)``): pairnet
 sequential (``evaluate_scene``), batched B=``--batch`` with a readback every
@@ -55,6 +56,7 @@ from dvmvs_tpu_torch.apps.simulate_keyframe_buffer import simulate_dataset
 from dvmvs_tpu_torch.config import TestConfig
 from dvmvs_tpu_torch.data.scene_folders import write_scene_folders
 from dvmvs_tpu_torch.ops import plane_sweep
+from dvmvs_tpu_torch.utils.precision import ieee_float32
 
 DATASET, FRAME = "synth640", (640, 480)
 
@@ -142,6 +144,7 @@ def timed(fn, cuda: bool):
             plane_sweep.launch_count)
 
 
+@ieee_float32()
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -162,8 +165,6 @@ def main(argv=None):
     ap.add_argument("--json", default=None, help="write the report here too")
     args = ap.parse_args(argv)
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = TestConfig(**{k: v for k, v in (("image_width", args.width),
                                           ("image_height", args.height)) if v is not None})
     pair, fusion = (InferenceEngine(kind, cfg, device=args.device, seed=0, graphs=False)

@@ -187,6 +187,13 @@ def plain_timer(kernel: str, inputs, dot: bool = True):
 
 def main(argv=None):
     args = parse_args(argv)
+    from dvmvs_tpu_torch.utils.precision import ieee_float32
+
+    with ieee_float32():
+        return _bench(args)
+
+
+def _bench(args):
     import torch
 
     from dvmvs_tpu_torch.ops import cuda_build
@@ -196,7 +203,6 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("bench_plane_sweep: needs a GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
     kernel, source = args.kernel, SOURCES[args.kernel]
     versions = {"current": source}
     versions.update({path: (source, os.path.abspath(path)) for path in args.baseline})

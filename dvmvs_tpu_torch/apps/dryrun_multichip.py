@@ -37,6 +37,7 @@ from dvmvs_tpu_torch.parallel.train import (
     make_data_parallel,
     make_optimizer,
 )
+from dvmvs_tpu_torch.utils.precision import describe
 
 S, H, W, V = 2, 64, 64, 2
 
@@ -146,6 +147,7 @@ def main(argv=None):
     ap.add_argument("--n-devices", type=int, required=True)
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
+    print(f"dryrun_multichip({args.n_devices}) on {args.device}; {describe()}", flush=True)
     dryrun_multichip(args.n_devices, args.device)
 
 

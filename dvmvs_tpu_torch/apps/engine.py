@@ -34,7 +34,8 @@ capture on the CPU, and what the caller keeps is copied out of the output
 buffers. With ``graphs=False`` the body is called on fresh tensors (the
 eager path; ``recording_cost_volumes`` and ``profile_step``'s per-module
 split run it). A failed capture or replay raises: nothing falls back to
-the eager path.
+the eager path. Both ways compute in IEEE float32, the reference's mode,
+whatever the process's TF32 flags are (``utils/precision.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from dvmvs_tpu_torch.models.fusionnet import FusionNet, LSTMCarry, init_lstm_car
 from dvmvs_tpu_torch.models.layers import init_parameters
 from dvmvs_tpu_torch.models.pairnet import PairNet, scale_intrinsics
 from dvmvs_tpu_torch.ops.warp import splat_depth_max_strided
+from dvmvs_tpu_torch.utils.precision import ieee_float32
 from dvmvs_tpu_torch.utils.weights import load_jax_variables
 
 # a bank's storage is allocated in whole multiples of this many frames, so
@@ -185,7 +187,8 @@ class InferenceEngine:
         fixed = fixed or {}
         extra = {} if state is None else {"state": state}
         if not self._graphed():
-            return body(**{k: self._fresh(v) for k, v in inputs.items()}, **fixed, **extra)
+            with ieee_float32():
+                return body(**{k: self._fresh(v) for k, v in inputs.items()}, **fixed, **extra)
         tap = self._recording is not None and cost_volumes
         shapes, addresses = self._signature(inputs, fixed)
         key = (name, tap, shapes, addresses)

@@ -30,6 +30,11 @@ into the buffers it was given: a state reassigned instead is not seen by
 the next replay. A capture or replay that fails raises; nothing falls back
 to running the body eagerly.
 
+A body runs, warms up and is captured inside
+``utils/precision.py::ieee_float32``: a replay runs the convolution kernels
+chosen while the graph was captured, so the graph computes in IEEE float32
+whatever the process's TF32 flags are at the replay.
+
 The kernel wrappers (the plane sweep's forward and backward, the DLT
 solve) count their launches in Python, which a replay does not run: the
 count a capture records is added back at every replay, and the capture's
@@ -43,6 +48,7 @@ from typing import Callable, Dict, Iterator, Sequence
 import torch
 
 from dvmvs_tpu_torch.ops import dlt, plane_sweep
+from dvmvs_tpu_torch.utils.precision import ieee_float32
 
 # warm-up runs before a capture, on a side stream (PyTorch's graph docs):
 # they build the kernels, the cuBLAS / cuDNN handles and workspaces and the
@@ -120,14 +126,16 @@ class StepGraph:
     def run(self):
         """One step; returns the output buffers (valid until the next run)."""
         if self.device.type != "cuda":
-            out = self.body(**self.args)
+            with ieee_float32():
+                out = self.body(**self.args)
             if self.outputs is None:
                 self.outputs = tree_map(torch.empty_like, out)
             for dst, src in zip(leaves(self.outputs), leaves(out)):
                 dst.copy_(src)
             return self.outputs
         if self.graph is None:
-            self._capture()
+            with ieee_float32():
+                self._capture()
         try:
             self.graph.replay()
         except RuntimeError as err:

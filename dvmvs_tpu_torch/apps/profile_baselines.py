@@ -26,7 +26,7 @@ and, for DELTAS, the device time of its ``csrc/dlt_solve.cu`` kernel a
 Prints one JSON object, also written to ``--out``.
 
 Run: ``python -m dvmvs_tpu_torch.apps.profile_baselines [--out FILE]
-[--reps N] [--keyframes N] [--rounds N]`` (needs the card; TF32 off).
+[--reps N] [--keyframes N] [--rounds N]`` (needs the card; IEEE float32, the port's mode).
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ from dvmvs_tpu_torch.baselines.deltas import (
 from dvmvs_tpu_torch.baselines.dpsnet import inverse_warp
 from dvmvs_tpu_torch.baselines.mvdepthnet import l1_cost_volume, upload_views
 from dvmvs_tpu_torch.ops import dlt, plane_sweep
+from dvmvs_tpu_torch.utils.precision import ieee_float32
 
 NAMES = ("mvdepthnet", "gpmvs", "dpsnet", "deltas")
 PREDICT_RANGE = "baseline.predict"
@@ -278,6 +279,7 @@ def paths(n_keyframes: int, rounds: int) -> dict:
     return out
 
 
+@ieee_float32()
 def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -289,8 +291,6 @@ def main(argv: Optional[Sequence[str]] = None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_baselines: needs a GPU (torch.cuda.is_available() is false)")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     result = {"card": card, **profile(args.reps), "paths": paths(args.keyframes, args.rounds)}

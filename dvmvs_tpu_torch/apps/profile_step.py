@@ -41,7 +41,7 @@ pipeline's wait for a batch.
 
 Run from the repo root: ``python -m dvmvs_tpu_torch.apps.profile_step
 [--model fusionnet] [--train [--run-training DATASET]] [--out FILE.json]``.
-TF32 is off, as in chip_smoke.py.
+In IEEE float32, the port's mode (``utils/precision.py``).
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ import numpy as np
 
 from dvmvs_tpu_torch.config import TestConfig
 from dvmvs_tpu_torch.data import synthetic as synth
+from dvmvs_tpu_torch.utils.precision import ieee_float32
 
 MODULES = ("feature_extractor", "feature_shrinker", "cost_volume_encoder", "lstm_fusion",
            "cost_volume_decoder")
@@ -238,8 +239,6 @@ def profile(model_kind: str) -> dict:
     from dvmvs_tpu_torch.apps.run_testing_online import predict_stream
     from dvmvs_tpu_torch.utils.results import InferenceTimer
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = TestConfig()
     frames, poses, K = synthetic_stream(cfg, N_FRAMES)
 
@@ -436,8 +435,6 @@ def run_training_steps(model_kind: str, dataset: str, n_rounds: int = N_ROUNDS, 
     from dvmvs_tpu_torch.data.dataset import MVSSequenceDataset, batch_iterator, device_prefetch
     from dvmvs_tpu_torch.utils.blas_threads import single_threaded_blas
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = TrainConfig()
     length = cfg.subsequence_length if model_kind == "fusionnet" else 2
     batch_size = 4 if model_kind == "fusionnet" else 14
@@ -479,8 +476,6 @@ def profile_train(model_kind: str) -> dict:
 
     from dvmvs_tpu_torch.config import TrainConfig
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = TrainConfig()
     batch_size, length = (4, cfg.subsequence_length) if model_kind == "fusionnet" else (14, 2)
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in
@@ -488,6 +483,7 @@ def profile_train(model_kind: str) -> dict:
     return train_paths(model_kind, batch)
 
 
+@ieee_float32()
 def main():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)

@@ -58,6 +58,7 @@ from dvmvs_tpu_torch.data.io import load_depth_png, load_image
 from dvmvs_tpu_torch.data.preprocess import PreprocessImage
 from dvmvs_tpu_torch.parallel import mesh
 from dvmvs_tpu_torch.utils.checkpoint import load_checkpoint
+from dvmvs_tpu_torch.utils.precision import describe
 from dvmvs_tpu_torch.utils.results import InferenceTimer, save_results
 from dvmvs_tpu_torch.utils.visualization import VIS_DIR, save_visualization
 
@@ -515,7 +516,8 @@ def _evaluate(args, cfg: TestConfig, device, group):
         if (args.dataset_name is None or args.dataset_name in f)
         and f.endswith(f"nmeas+{args.n_measurement_frames}"))
     if lead:
-        print(f"{len(index_files)} index files")
+        print(f"{len(index_files)} index files ({args.model} on {device}; {describe()})",
+              flush=True)
 
     def parse_job(index_file):
         keyframing_type, dataset_name, scene_name, _, _ = \

@@ -34,6 +34,7 @@ from dvmvs_tpu_torch.data.io import load_depth_png, load_image
 from dvmvs_tpu_torch.data.preprocess import PreprocessImage
 from dvmvs_tpu_torch.utils.baseline_weights import BASELINE_STATE_DICTS
 from dvmvs_tpu_torch.utils.checkpoint import is_jax_checkpoint, read_jax_variables
+from dvmvs_tpu_torch.utils.precision import describe
 from dvmvs_tpu_torch.utils.results import InferenceTimer, save_results
 
 
@@ -134,6 +135,8 @@ def main(argv: Optional[Sequence[str]] = None):
         os.path.join(indices_dir, f) for f in os.listdir(indices_dir)
         if (args.dataset_name is None or args.dataset_name in f)
         and f.endswith(f"nmeas+{args.n_measurement_frames}"))
+    print(f"{len(index_files)} index files ({args.baseline} on {estimator.device}; "
+          f"{describe()})", flush=True)
     for i, index_file in enumerate(index_files):
         keyframing_type, dataset_name, scene_name, _, _ = os.path.basename(index_file).split("+")
         scene_folder = os.path.join(args.data, dataset_name, scene_name)

@@ -46,6 +46,7 @@ from dvmvs_tpu_torch.ops.tsdf import TSDFVolume
 from dvmvs_tpu_torch.utils.checkpoint import load_checkpoint
 from dvmvs_tpu_torch.utils.keyframe_buffer import KeyframeBuffer
 from dvmvs_tpu_torch.utils.native import write_mesh_ply
+from dvmvs_tpu_torch.utils.precision import describe
 from dvmvs_tpu_torch.utils.results import InferenceTimer, save_results
 from dvmvs_tpu_torch.utils.visualization import VIS_DIR, save_visualization
 
@@ -323,7 +324,8 @@ def main(argv: Optional[Sequence[str]] = None):
     system_name = (
         f"keyframe_{dataset_name}_{cfg.image_width}_{cfg.image_height}"
         f"_{args.n_measurement_frames}_dvmvs_tpu_torch_{args.model}_online")
-    print("Predicting with System:", system_name)
+    print(f"Predicting with System: {system_name} (device {engine.device}; {describe()})",
+          flush=True)
     predictions, gts = predict_scene(engine, args.scene, cfg,
                                      evaluate=not args.no_evaluate,
                                      max_frames=args.max_frames, live_tsdf=live_tsdf)

@@ -77,6 +77,7 @@ from dvmvs_tpu_torch.utils.checkpoint import (
     write_resume_state,
 )
 from dvmvs_tpu_torch.utils.losses import LossMeter
+from dvmvs_tpu_torch.utils.precision import describe, ieee_float32
 from dvmvs_tpu_torch.utils.run_logging import RunLogger, snapshot_code
 from dvmvs_tpu_torch.utils.visualization import colorize_depth
 
@@ -186,8 +187,9 @@ def validate(model, dataset, cfg: TrainConfig, device, kind: str, freeze_bn: boo
                 meters[k].update(float(metrics[k]), count)
         if panels is not None and kind == "fusionnet" and first is not None:
             batch = decode_wire_batch(first)
-            full = fusionnet_train_sequence(model, batch["images"], batch["depths"],
-                                            batch["poses"], batch["K"])[0]
+            with ieee_float32():
+                full = fusionnet_train_sequence(model, batch["images"], batch["depths"],
+                                                batch["poses"], batch["K"])[0]
             os.makedirs(panels, exist_ok=True)
             for name, depth in (("pred", full[-1, 0]), ("gt", batch["depths"][0, -1])):
                 write_png(os.path.join(panels, f"epoch{epoch:04d}_{name}.png"),
@@ -302,7 +304,7 @@ def _train(args, kind: str, cfg: TrainConfig, device, freeze_bn: bool, group) ->
     run_dir = _run_directory(args.run_directory) if lead else None
     if lead:
         print(f"run directory: {run_dir} (device {device}, {mesh.world_size(group)} "
-              f"process(es))", flush=True)
+              f"process(es); {describe()})", flush=True)
     model = make_model(kind, cfg, device, args.seed)
     if args.warm_start:
         fresh = load_checkpoint(args.warm_start, model, partial=True)

@@ -15,6 +15,9 @@ outputs. ``GraphedEstimator._step`` runs a body one of two ways:
   - ``graphs=False``: the body is called on freshly uploaded tensors (the
     eager path; ``apps/profile_baselines.py``'s stage split uses it).
 
+Both ways compute in IEEE float32, the reference's mode, whatever the
+process's TF32 flags are (``utils/precision.py``).
+
 A step's ``fixed`` tensors (an earlier step's output buffers) are read in
 place, so the step is keyed on their addresses: GP-MVS's decoder reads the
 encoder graph's skips on the device. Both graphs run on one stream, so the
@@ -34,6 +37,7 @@ import torch
 
 from dvmvs_tpu_torch.apps.graphs import StepGraph, fill, leaves
 from dvmvs_tpu_torch.baselines.registry import DepthEstimator, pad_views
+from dvmvs_tpu_torch.utils.precision import ieee_float32
 
 
 def relative_inputs(n_views: int, ref_image, meas_images, ref_pose, meas_poses, K,
@@ -88,7 +92,8 @@ class GraphedEstimator(DepthEstimator):
         ``fixed`` tensors; returns its outputs (module doc)."""
         fixed = fixed or {}
         if not self.graphs:
-            return body(**{k: self._fresh(v) for k, v in inputs.items()}, **fixed)
+            with ieee_float32():
+                return body(**{k: self._fresh(v) for k, v in inputs.items()}, **fixed)
         key = (name, tuple((k, tuple(v.shape)) for k, v in inputs.items()),
                tuple(t.data_ptr() for t in leaves(fixed)))
         step = self.step_graphs.get(key)

@@ -54,6 +54,10 @@ the gradients live in one flat buffer that outlives the graph
 sums it in place, so nothing the update reads is allocated per step.
 ``broadcast_state`` writes in place, so a resume state broadcast after a
 capture reaches the graph.
+
+Both steps, forward and backward, compute in IEEE float32, the reference's
+mode, whatever the process's TF32 flags are (``utils/precision.py``), and
+so do their graphs, captured in that mode.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ from dvmvs_tpu_torch.models.layers import convert_sync_batchnorm
 from dvmvs_tpu_torch.models.training_heads import fusionnet_train_sequence, pairnet_train_pair
 from dvmvs_tpu_torch.utils.losses import multi_scale_loss
 from dvmvs_tpu_torch.utils.optim import init_optimizer_state
+from dvmvs_tpu_torch.utils.precision import ieee_float32
 
 # Unfreeze schedules (top-level module names), per reference driver.
 FUSIONNET_STAGES: List[List[str]] = [
@@ -219,6 +224,7 @@ def pairnet_loss_fn(model, batch, flip_mask, loss_type: str = "L1-inv",
     return total, {"loss": total, **metrics}
 
 
+@ieee_float32()
 def train_step(model, optimizer, batch, kind: str = "fusionnet", loss_type: str = "L1-inv",
                two_way: bool = False, flip_mask=(False,), group=None):
     """One optimizer step on a decoded-or-wire batch already on the device
@@ -248,6 +254,7 @@ def train_step(model, optimizer, batch, kind: str = "fusionnet", loss_type: str 
     return {k: v.detach() for k, v in metrics.items()}
 
 
+@ieee_float32()
 @torch.no_grad()
 def eval_step(model, batch, kind: str = "fusionnet", loss_type: str = "L1-inv", group=None):
     """Validation metrics with the model as the caller left it (the driver
