@@ -394,7 +394,7 @@ def bulk_case(torch, ps, seed, device):
     return ref, meas, mats, weights
 
 
-def bulk_phases(torch, ps, device, cfg, card, clock, tmp):
+def bulk_phases(torch, device, cfg, card, clock, tmp):
     """[bulk-scenes], [bulk], [bulk-reference], [tsdf] and [live-tsdf];
     returns the forward launches and timings of the batched pairnet run."""
     from dvmvs_tpu_torch.apps import run_testing as rt
@@ -478,7 +478,7 @@ def bulk_phases(torch, ps, device, cfg, card, clock, tmp):
     runs = {}
     for name, (fn, min_launches) in modes.items():
         fn()
-        depths, seconds, peak, fwd, bwd = timed_run(torch, ps, fn)
+        depths, seconds, peak, fwd, bwd = timed_run(torch, fn)
         if bwd or fwd < min_launches:
             raise AssertionError(f"{name}: kernels launched {fwd} forward (want >= "
                                  f"{min_launches}) and {bwd} backward (want 0)")
@@ -623,7 +623,7 @@ def bulk_phases(torch, ps, device, cfg, card, clock, tmp):
 
     # [live-tsdf]: the online driver fusing every keyframe into a volume
     live = run_testing_online.LiveTSDF(voxel_size=TSDF_VOXEL, max_depth=3.0, device=device)
-    (preds, _), _, peak, fwd, _ = timed_run(torch, ps, lambda: run_testing_online.predict_scene(
+    (preds, _), _, peak, fwd, _ = timed_run(torch, lambda: run_testing_online.predict_scene(
         fusion, folder, cfg, evaluate=False, live_tsdf=live))
     mesh_path = os.path.join(tmp, "live", "live_complete.ply")
     live.save_mesh(mesh_path)
@@ -642,7 +642,7 @@ def bulk_phases(torch, ps, device, cfg, card, clock, tmp):
             "tsdf_voxels": n_vox, "marching_cubes_s": mc_s}
 
 
-def baseline_phases(torch, ps, device, card, clock, tmp):
+def baseline_phases(torch, device, card, clock, tmp):
     """[baselines]: each of the four baselines through
     ``run_testing_baseline.evaluate_scene_baseline`` on the card over one
     640x480 scene folder and its index file, against the same code on the
@@ -677,10 +677,10 @@ def baseline_phases(torch, ps, device, card, clock, tmp):
         held = torch.cuda.memory_allocated() / 2 ** 20
         seen = []  # each keyframe's predict arguments, for [baseline-graphs]
         est.predict = lambda *a, real=est.predict: (seen.append(a), real(*a))[1]
-        dlt.launch_count = 0
-        preds, _, peak, fwd, bwd = timed_run(torch, ps, lambda: run(est, BASELINE_KEYFRAMES,
-                                                                    timer))
-        solves = dlt.launch_count
+        mark = launch_mark()
+        preds, _, peak, fwd, bwd = timed_run(torch, lambda: run(est, BASELINE_KEYFRAMES,
+                                                                timer))
+        solves = launches_since(mark)[2]
         del est.predict
         want_fwd = len(preds) if name in ("mvdepthnet", "gpmvs") else 0
         want_solves = len(preds) if name == "deltas" else 0
@@ -887,7 +887,7 @@ def dlt_phase(torch, card, clock, baselines):
     return report
 
 
-def real_data_phase(torch, ps, device, cfg, card, clock, tmp, corpus):
+def real_data_phase(torch, device, cfg, card, clock, tmp, corpus):
     """[real-data]: the path of a ScanNet user on a synthetic scan. Returns
     the phase's numbers and its kernel launches."""
     from dvmvs_tpu_torch.apps import run_testing as rt
@@ -902,7 +902,7 @@ def real_data_phase(torch, ps, device, cfg, card, clock, tmp, corpus):
     from dvmvs_tpu_torch.utils.visualization import VIS_DIR
 
     start = time.perf_counter()
-    ps.launch_count = ps.backward_launch_count = 0
+    phase = launch_mark()
     # the committed JPEGs through the port's decoder (its g++ build included
     # in the first frame), against OpenCV's pixel digests
     t0 = time.perf_counter()
@@ -964,10 +964,10 @@ def real_data_phase(torch, ps, device, cfg, card, clock, tmp, corpus):
 
     gaps = {}
     common = ["--data", data, "--device", str(device), "--output"]
-    fwd0 = ps.launch_count
+    mark = launch_mark()
     rt.main(common + [os.path.join(tmp, "pair"), "--model", "pairnet", "--batch-size",
                       str(REAL_BATCH), "--checkpoint", msgpack["pairnet"]])
-    pair_fwd = ps.launch_count - fwd0
+    pair_fwd = launches_since(mark)[0]
     got = saved(os.path.join(tmp, "pair"), "keyframe_scannet_320_256_2_dvmvs_tpu_torch_pairnet")
     want, _ = rt.evaluate_scene_batched(engines["pairnet"], folder, index, cfg, REAL_BATCH)
     gaps["run_testing pairnet B=8"] = float(np.abs(got - np.stack(want)).max())
@@ -981,11 +981,11 @@ def real_data_phase(torch, ps, device, cfg, card, clock, tmp, corpus):
     cwd = os.getcwd()
     os.chdir(tmp)  # --visualize writes under the working directory, as the JAX driver does
     try:
-        fwd0 = ps.launch_count
+        mark = launch_mark()
         run_testing_online.main(["--scene", folder, "--checkpoint", msgpack["fusionnet"],
                                  "--visualize", "--device", str(device), "--output",
                                  os.path.join(tmp, "online")])
-        online_fwd = ps.launch_count - fwd0
+        online_fwd = launches_since(mark)[0]
     finally:
         os.chdir(cwd)
     got = saved(os.path.join(tmp, "online"),
@@ -1018,27 +1018,28 @@ def real_data_phase(torch, ps, device, cfg, card, clock, tmp, corpus):
 
     # two fusionnet steps with every module trainable, warm-started from the
     # pairnet msgpack (lstm_fusion kept fresh), at the training shape
-    fwd0, bwd0 = ps.launch_count, ps.backward_launch_count
+    mark = launch_mark()
     run_dir = run_training.main(
         ["--model", "fusionnet", "--dataset", corpus, "--run-directory",
          os.path.join(tmp, "runs"), "--warm-start", msgpack["pairnet"], "--epochs", "2",
          "--finetune-epochs", "0", "--max-steps", "1", "--no-validate", "--print-frequency",
          "1", "--device", str(device)])
-    train_fwd, train_bwd = ps.launch_count - fwd0, ps.backward_launch_count - bwd0
+    train_fwd, train_bwd = launches_since(mark)[:2]
     losses = [e["loss"] for e in read_run(run_dir)[0]]
     if len(losses) != 2 or not np.isfinite(losses).all() or train_fwd < 14 or train_bwd < 14:
         raise AssertionError(f"[real-data] warm-started training: losses {losses}, launches "
                              f"{train_fwd}/{train_bwd}")
     seconds = time.perf_counter() - start
+    phase_fwd, phase_bwd = launches_since(phase)[:2]
     print(f"[real-data] run_tsdf mesh {meshes[0]} and {len(clouds)} point-cloud PLY files of the "
           f"exported scene; run_training fusionnet B={TB} S=8 256x256 warm-started from the "
           f"pairnet .msgpack: losses {', '.join(f'{v:.4f}' for v in losses)}, launches forward "
           f"{train_fwd}, backward {train_bwd}; phase {seconds:.1f} s, launches forward "
-          f"{ps.launch_count}, backward {ps.backward_launch_count} ({lap(clock):.1f} s) | {card}",
+          f"{phase_fwd}, backward {phase_bwd} ({lap(clock):.1f} s) | {card}",
           flush=True)
     return {"jpeg_decode_ms": decode_ms, "export_s_per_frame": export_s,
             "frames_differing": len(differ), "keyframes": keyframes, "depth_gaps": gaps,
-            "seconds": seconds, "fwd": ps.launch_count, "bwd": ps.backward_launch_count}
+            "seconds": seconds, "fwd": phase_fwd, "bwd": phase_bwd}
 
 
 @contextlib.contextmanager
@@ -1065,7 +1066,7 @@ def bound_carry(engine, name):
     return [t.cpu().numpy() for t in step.args["state"][0]]
 
 
-def graphs_online_phase(torch, ps, device, cfg, card, clock, stream):
+def graphs_online_phase(torch, device, cfg, card, clock, stream):
     """[graphs] online: the 40-frame stream through the graphed and the eager
     engine, fusionnet and pairnet; returns the numbers for the JSON line."""
     from dvmvs_tpu_torch.apps.engine import InferenceEngine
@@ -1109,9 +1110,9 @@ def graphs_online_phase(torch, ps, device, cfg, card, clock, stream):
             torch.cuda.synchronize()
             peak[mode] = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
         eager, graphed = engines["eager"], engines["graphs"]
-        ps.launch_count = ps.backward_launch_count = 0
+        mark = launch_mark()
         again = run(graphed)
-        launches = ps.launch_count
+        launches, backward = launches_since(mark)[:2]
         n = len(again[0])
         depth_gap = max(float(np.max(np.abs(a - b) / b)) for a, b in zip(
             first["graphs"][0] + again[0], first["eager"][0] * 2))
@@ -1146,7 +1147,7 @@ def graphs_online_phase(torch, ps, device, cfg, card, clock, stream):
         if not (depth_gap <= REF_RTOL and feature_gap <= REF_RTOL * np.abs(
                 np.concatenate([f.ravel() for f in first["eager"][1]])).max() and cv <= CV_RTOL):
             raise AssertionError(f"{kind}: the graph path disagrees with the eager path")
-        if launches != n or ps.backward_launch_count:
+        if launches != n or backward:
             raise AssertionError(f"{kind}: {launches} forward launches counted for {n} replays")
         if calls["ranges"] != n or per_kf["cudaGraphLaunch"] != 1.0 \
                 or per_kf["cudaLaunchKernel"] != 0.0:
@@ -1180,7 +1181,7 @@ def graphs_online_phase(torch, ps, device, cfg, card, clock, stream):
     return report
 
 
-def graphs_bulk_phase(torch, ps, device, cfg, card, clock, bulk):
+def graphs_bulk_phase(torch, device, cfg, card, clock, bulk):
     """[graphs] bulk: run_testing's chunks of BULK_SCAN through graphs
     against the eager engines; returns the numbers for the JSON line."""
     from dvmvs_tpu_torch.apps import run_testing as rt
@@ -1218,7 +1219,7 @@ def graphs_bulk_phase(torch, ps, device, cfg, card, clock, bulk):
         for dtype, tol, cv_tol in (("f32", BULK_ATOL, CV_RTOL), ("bf16", BF16_ATOL, CV_BF16_RTOL)):
             fn = chunked(kind, graphed[kind], dtype)
             fn()  # captures (and drops the graphs of another bank)
-            depths, seconds, peak, fwd, bwd = timed_run(torch, ps, fn)
+            depths, seconds, peak, fwd, bwd = timed_run(torch, fn)
             gap = max_gap(depths, seq)
             cv = cv_gap(recorded(graphed[kind], chunked(kind, graphed[kind], dtype, 1), True),
                         want_cv)
@@ -1252,18 +1253,36 @@ def graphs_bulk_phase(torch, ps, device, cfg, card, clock, bulk):
     return report
 
 
-def timed_run(torch, ps, fn):
-    """fn() with the launch counts set to 0 just before and read just after:
+def launch_mark() -> dict:
+    """A snapshot of the port's counters (``utils/profiling.py``), for
+    ``launches_since``."""
+    from dvmvs_tpu_torch.utils.profiling import counters
+
+    return counters.snapshot()
+
+
+def launches_since(mark: dict) -> tuple:
+    """(sweep forward, sweep backward, DLT solve) kernel launches counted
+    after ``mark``."""
+    from dvmvs_tpu_torch.apps.graphs import LAUNCHES
+    from dvmvs_tpu_torch.utils.profiling import counters
+
+    moved = counters.since(mark)
+    return tuple(moved.get(name, 0) for name in LAUNCHES)
+
+
+def timed_run(torch, fn):
+    """fn() with the launches counted from just before to just after:
     (result, wall seconds to the last readback, peak MiB, forward launches,
     backward launches)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ps.launch_count = ps.backward_launch_count = 0
+    mark = launch_mark()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     return (out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 20,
-            ps.launch_count, ps.backward_launch_count)
+            *launches_since(mark)[:2])
 
 
 def max_gap(got, want):
@@ -1289,7 +1308,7 @@ def read_run(run_dir):
             [e for e in lines if e["tag"] == "validation"])
 
 
-def check_run(torch, ps, run_dir, kind, n_stages, steps, s, peak_mib):
+def check_run(torch, mark, run_dir, kind, n_stages, steps, s, peak_mib):
     """Losses finite, checkpoint and resume pair written, both kernels
     launched for every step; prints the [train] line."""
     train, val = read_run(run_dir)
@@ -1305,7 +1324,7 @@ def check_run(torch, ps, run_dir, kind, n_stages, steps, s, peak_mib):
     checkpoints = sorted(f for f in os.listdir(run_dir) if f.startswith(f"{kind}_epoch"))
     if f"{kind}_epoch0.pt" not in checkpoints:
         raise AssertionError(f"{kind}: no checkpoint of the first epoch in {run_dir}")
-    fwd, bwd = ps.launch_count, ps.backward_launch_count
+    fwd, bwd = launches_since(mark)[:2]
     need = (s - 1) * n_stages * steps
     if fwd < need or bwd < need:
         raise AssertionError(f"{kind}: kernels launched {fwd}/{bwd} times, want >= {need} each")
@@ -1414,7 +1433,7 @@ def reassigning_adam(torch):
     return ReassignedState
 
 
-def lockstep_train_runs(torch, ps, base, kind, batches, flips, make_optimizer, modes,
+def lockstep_train_runs(torch, base, kind, batches, flips, make_optimizer, modes,
                         group=None):
     """GRAPH_STEPS steps of "eager" and of each of ``modes`` ("repeat":
     eagerly again; "free": eagerly, each step from its own last state;
@@ -1445,7 +1464,7 @@ def lockstep_train_runs(torch, ps, base, kind, batches, flips, make_optimizer, m
                         for t, value in zip(tensors, before[i][key]):
                             t.copy_(value)
             if i == 1:
-                ps.launch_count = ps.backward_launch_count = 0
+                mark = launch_mark()
             if mode in ("eager", "repeat", "free"):
                 metrics = tt.train_step(model, optimizer, batch, kind, two_way=kind == "pairnet",
                                         flip_mask=flip.tolist(), group=group)
@@ -1453,7 +1472,7 @@ def lockstep_train_runs(torch, ps, base, kind, batches, flips, make_optimizer, m
                 metrics = graphed.train(optimizer, batch, flip)
             steps.append((metrics["loss"].clone(), snapshot(step_state(model, optimizer))))
         torch.cuda.synchronize()
-        runs[mode], launches[mode] = steps, (ps.launch_count, ps.backward_launch_count)
+        runs[mode], launches[mode] = steps, launches_since(mark)[:2]
     return runs, before, launches
 
 
@@ -1511,7 +1530,7 @@ def lockstep_optimizer(torch, modules, lr):
     return make
 
 
-def check_lockstep(torch, ps, label, base, kind, batches, flips, modules, lr, modes, per_step,
+def check_lockstep(torch, label, base, kind, batches, flips, modules, lr, modes, per_step,
                    card, clock, group=None):
     """``lockstep_train_runs`` of ``modes`` (with "graphs" and "fault")
     under deterministic cuDNN, read by [train-graphs]' rules (GRAPH_STEPS'
@@ -1523,7 +1542,7 @@ def check_lockstep(torch, ps, label, base, kind, batches, flips, modules, lr, mo
     torch.backends.cudnn.deterministic = True
     try:
         runs, before, launches = lockstep_train_runs(
-            torch, ps, base, kind, batches, flips, lockstep_optimizer(torch, modules, lr), modes,
+            torch, base, kind, batches, flips, lockstep_optimizer(torch, modules, lr), modes,
             group)
     finally:
         torch.backends.cudnn.deterministic = False
@@ -1597,7 +1616,7 @@ def timed_paths(torch, label, kind, batch, flip, card, clock, group=None):
 FLIPS = ([True, False], [False, True], [True, True])  # pairnet's flips, a step
 
 
-def train_graphs_phase(torch, ps, device, card, clock, corpus):
+def train_graphs_phase(torch, device, card, clock, corpus):
     """[train-graphs]: fusionnet B=4 S=8 and two-way pairnet B=14 at 256x256
     on the [train] corpus, GRAPH_STEPS steps through ``GraphedTrainStep``
     and eagerly (twice, the eager path's run-to-run gap), each step from the
@@ -1623,7 +1642,7 @@ def train_graphs_phase(torch, ps, device, card, clock, corpus):
         base = make_model(kind, cfg, device, seed=0).train()
         label = (f"[train-graphs] {kind} B={b} S={s} 256x256"
                  f"{' two-way' if kind == 'pairnet' else ''}")
-        report[kind] = check_lockstep(torch, ps, label, base, kind, batches, flips, modules,
+        report[kind] = check_lockstep(torch, label, base, kind, batches, flips, modules,
                                       cfg.learning_rate, ("repeat", "free", "graphs", "fault"),
                                       per_step, card, clock)
         del base
@@ -1632,7 +1651,7 @@ def train_graphs_phase(torch, ps, device, card, clock, corpus):
     return report
 
 
-def parallel_phase(torch, ps, card, clock):
+def parallel_phase(torch, card, clock):
     """[parallel]: NCCL at world size 1. ``dryrun_multichip(1)``, then one
     pairnet and one fusionnet step through the data-parallel path against
     the plain step at the training shapes; the graphed data-parallel step
@@ -1677,11 +1696,10 @@ def parallel_phase(torch, ps, card, clock):
                 got = {}
                 for name, model, g in (("plain", plain, None), ("repeat", repeat, None),
                                        ("dp", dp, group)):
-                    ps.launch_count = ps.backward_launch_count = 0
+                    mark = launch_mark()
                     loss = step(model, tt.make_optimizer(model, stages[-1]), g)["loss"]
                     torch.cuda.synchronize()
-                    got[name] = (loss, model.state_dict(), ps.launch_count,
-                                 ps.backward_launch_count)
+                    got[name] = (loss, model.state_dict(), *launches_since(mark)[:2])
             finally:
                 torch.backends.cudnn.deterministic = False
             (l0, sd0, _, _), (lr, sdr, _, _), (l1, sd1, fwd, bwd) = (
@@ -1707,7 +1725,7 @@ def parallel_phase(torch, ps, card, clock):
             # the graphed data-parallel step against the eager one
             label = f"[parallel] {kind} B={b} S={s} 256x256 data-parallel graphed"
             flips = [torch.tensor(f) for f in FLIPS]
-            lock = check_lockstep(torch, ps, label, plain, kind, batches, flips, stages[-1],
+            lock = check_lockstep(torch, label, plain, kind, batches, flips, stages[-1],
                                   TrainConfig().learning_rate, ("repeat", "graphs", "fault"),
                                   per_step, card, clock, group)
             del plain
@@ -1719,7 +1737,7 @@ def parallel_phase(torch, ps, card, clock):
     return out
 
 
-def parallel_bulk_phase(ps, tmp, card, clock):
+def parallel_bulk_phase(tmp, card, clock):
     """[parallel-bulk]: run_testing --n-devices 1 --batch-size 8 on the
     [bulk] scenes against the plain batched run: the same files, equal
     depths, the forward kernel launched by the data-parallel run, and its
@@ -1730,12 +1748,12 @@ def parallel_bulk_phase(ps, tmp, card, clock):
     args = ["--data", tmp, "--dataset-name", BULK_DATASET, "--model", "pairnet",
             "--batch-size", str(BULK_BATCH), "--max-frames", str(BULK_BATCH)]
     rt.main(args + ["--output", os.path.join(tmp, "plain")])
-    ps.launch_count = ps.backward_launch_count = 0
+    mark = launch_mark()
     replays = []
     real_run = ag.StepGraph.run
     with patched(ag.StepGraph, "run", lambda self: (replays.append(self.name), real_run(self))[1]):
         rt.main(args + ["--n-devices", "1", "--output", os.path.join(tmp, "dp")])
-    fwd, bwd = ps.launch_count, ps.backward_launch_count
+    fwd, bwd = launches_since(mark)[:2]
     files = sorted(os.listdir(os.path.join(tmp, "plain")))
     if not files or files != sorted(os.listdir(os.path.join(tmp, "dp"))) or not fwd or bwd \
             or "predict_pair_steps" not in replays:
@@ -1935,11 +1953,11 @@ def main():
     timer = InferenceTimer(n_skip=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ps.launch_count = ps.backward_launch_count = 0
+    mark = launch_mark()
     predictions, indices = predict_stream(engine, frames, poses, K, cfg, timer=timer)
     torch.cuda.synchronize()
-    launches = ps.launch_count
-    if ps.backward_launch_count:
+    launches, backward = launches_since(mark)[:2]
+    if backward:
         raise AssertionError("the online path launched the backward kernel")
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     d = cfg.depth
@@ -2060,13 +2078,13 @@ def main():
                  PAIR_STEPS, 2)):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            ps.launch_count = ps.backward_launch_count = 0
+            mark = launch_mark()
             run_dirs[kind] = run_dir = run_training.main(
                 ["--model", kind, "--dataset", corpus, "--run-directory",
                  os.path.join(tmp, "runs"), "--max-steps", str(steps), "--print-frequency", "1",
                  "--device", "cuda", *extra])
             torch.cuda.synchronize()
-            runs[kind] = check_run(torch, ps, run_dir, kind, n_stages, steps, s,
+            runs[kind] = check_run(torch, mark, run_dir, kind, n_stages, steps, s,
                                    torch.cuda.max_memory_allocated() / 2 ** 20)
             print(f"[train] {kind} run done ({lap(clock):.1f} s)", flush=True)
 
@@ -2109,10 +2127,10 @@ def main():
             raise AssertionError(f"the loss did not fall: {losses}")
 
         # 10a. [train-graphs]: the graphed training step against the eager one
-        train_graphs = train_graphs_phase(torch, ps, device, card, clock, corpus)
+        train_graphs = train_graphs_phase(torch, device, card, clock, corpus)
 
         # 10b. [real-data]: a ScanNet user's path, training on this corpus
-        real = real_data_phase(torch, ps, device, cfg, card, clock, tmp, corpus)
+        real = real_data_phase(torch, device, cfg, card, clock, tmp, corpus)
 
     # 11. [train-ref]: one train step on the card against the CPU, small size
     cfg_small = TrainConfig(image_width=64, image_height=64,
@@ -2138,18 +2156,18 @@ def main():
             raise AssertionError("the card's train step disagrees with the CPU's")
 
     # 11b. [parallel] the data-parallel path over NCCL at world size 1
-    parallel = parallel_phase(torch, ps, card, clock)
+    parallel = parallel_phase(torch, card, clock)
 
     # 12. bulk evaluation and TSDF reconstruction at TestConfig, then the
     # data-parallel bulk driver on the same scenes
     with tempfile.TemporaryDirectory() as tmp:
-        bulk = bulk_phases(torch, ps, device, cfg, card, clock, tmp)
-        parallel_bulk_phase(ps, tmp, card, clock)
+        bulk = bulk_phases(torch, device, cfg, card, clock, tmp)
+        parallel_bulk_phase(tmp, card, clock)
         # 12c. [graphs] every serving step as one CUDA graph replay, online
         # and in bulk chunks, against the eager path, with planted faults
-        graphs = {"online": graphs_online_phase(torch, ps, device, cfg, card, clock,
+        graphs = {"online": graphs_online_phase(torch, device, cfg, card, clock,
                                                 (frames, poses, K)),
-                  "bulk": graphs_bulk_phase(torch, ps, device, cfg, card, clock, bulk)}
+                  "bulk": graphs_bulk_phase(torch, device, cfg, card, clock, bulk)}
 
     # 12a. [proxy] the accuracy proxy's driver at a smoke's size
     with tempfile.TemporaryDirectory() as tmp:
@@ -2157,7 +2175,7 @@ def main():
 
     # 12b. the four baselines through their evaluation loop
     with tempfile.TemporaryDirectory() as tmp:
-        baselines = baseline_phases(torch, ps, device, card, clock, tmp)
+        baselines = baseline_phases(torch, device, card, clock, tmp)
     # 12d. [baseline-graphs] the baselines' graphed predict against the eager one
     baseline_graphs = baseline_graphs_phase(torch, card, clock, baselines)
     # 12e. [dlt] the DLT-solve kernel against its plain version, and its time

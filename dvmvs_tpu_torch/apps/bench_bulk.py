@@ -57,6 +57,7 @@ from dvmvs_tpu_torch.config import TestConfig
 from dvmvs_tpu_torch.data.scene_folders import write_scene_folders
 from dvmvs_tpu_torch.ops import plane_sweep
 from dvmvs_tpu_torch.utils.precision import ieee_float32
+from dvmvs_tpu_torch.utils.profiling import counters
 
 DATASET, FRAME = "synth640", (640, 480)
 
@@ -125,23 +126,22 @@ def host_launches(fn) -> dict:
 
 
 def timed(fn, cuda: bool):
-    """fn() with the forward launch count set to 0 just before: (result,
-    seconds to the last readback, peak MiB, MiB held at the start: every
-    engine's weights, retained bank and graphs (both 0 off the card),
-    forward launches)."""
+    """fn() with its forward launches counted: (result, seconds to the last
+    readback, peak MiB, MiB held at the start: every engine's weights,
+    retained bank and graphs (both 0 off the card), forward launches)."""
     held = 0.0
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated() / 2 ** 20
-    plane_sweep.launch_count = 0
+    before = counters[plane_sweep.FORWARD_LAUNCHES]
     t0 = time.perf_counter()
     out = fn()
     if cuda:
         torch.cuda.synchronize()
     return (out, time.perf_counter() - t0,
             torch.cuda.max_memory_allocated() / 2 ** 20 if cuda else 0.0, held,
-            plane_sweep.launch_count)
+            counters[plane_sweep.FORWARD_LAUNCHES] - before)
 
 
 @ieee_float32()

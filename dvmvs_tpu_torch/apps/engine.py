@@ -36,6 +36,15 @@ eager path; ``recording_cost_volumes`` and ``profile_step``'s per-module
 split run it). A failed capture or replay raises: nothing falls back to
 the eager path. Both ways compute in IEEE float32, the reference's mode,
 whatever the process's TF32 flags are (``utils/precision.py``).
+
+Under ``torch.profiler`` the host work of a graphed step shows as spans
+(``utils/profiling.py::span``): ``dvmvs.engine.inputs`` (the online step's
+packing), ``dvmvs.engine.fill`` (the graph lookup, eviction and copy-in),
+``dvmvs.graph.run``, ``dvmvs.engine.readback`` and, when a bank is
+allocated, ``dvmvs.engine.bank_alloc``. The counters ``graph.evictions``,
+``bank.allocations``, ``engine.h2d_bytes`` and ``engine.d2h_bytes`` count
+the graphs dropped for another bank, the banks allocated and the bytes
+copied in from host arrays and read back.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from dvmvs_tpu_torch.models.layers import init_parameters
 from dvmvs_tpu_torch.models.pairnet import PairNet, scale_intrinsics
 from dvmvs_tpu_torch.ops.warp import splat_depth_max_strided
 from dvmvs_tpu_torch.utils.precision import ieee_float32
+from dvmvs_tpu_torch.utils.profiling import counters, span
 from dvmvs_tpu_torch.utils.weights import load_jax_variables
 
 # a bank's storage is allocated in whole multiples of this many frames, so
@@ -108,6 +118,7 @@ class InferenceEngine:
         """Host array -> float32 device tensor without a host sync: on CUDA
         through pinned memory with a non-blocking copy."""
         t = torch.from_numpy(np.ascontiguousarray(array, dtype=np.float32))
+        counters.add("engine.h2d_bytes", t.nbytes)
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
@@ -115,6 +126,7 @@ class InferenceEngine:
     def upload_index(self, array: np.ndarray) -> torch.Tensor:
         """Host integer array -> int64 device tensor, without a host sync."""
         t = torch.from_numpy(np.ascontiguousarray(array, dtype=np.int64))
+        counters.add("engine.h2d_bytes", t.nbytes)
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
@@ -150,7 +162,9 @@ class InferenceEngine:
         """Copy an input into its static buffer (a host array through pinned
         memory, without a host sync)."""
         if isinstance(value, np.ndarray):
-            fill(buffer, torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32)))
+            t = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+            counters.add("engine.h2d_bytes", t.nbytes)
+            fill(buffer, t)
         elif isinstance(value, list):
             for i, view in enumerate(value):
                 buffer[:, i].copy_(view)
@@ -189,23 +203,26 @@ class InferenceEngine:
         if not self._graphed():
             with ieee_float32():
                 return body(**{k: self._fresh(v) for k, v in inputs.items()}, **fixed, **extra)
-        tap = self._recording is not None and cost_volumes
-        shapes, addresses = self._signature(inputs, fixed)
-        key = (name, tap, shapes, addresses)
-        step = self.step_graphs.get(key)
-        if step is None:
-            if addresses:  # drop the graphs of a bank that is not the engine's own
-                owned = set(map(self._where, leaves(self._bank)))
-                self.step_graphs = {k: v for k, v in self.step_graphs.items()
-                                    if not k[3] or k[3] == addresses or set(k[3]) <= owned}
-            warm = key[:3] not in self._warmed
-            self._warmed.add(key[:3])
-            args = {k: self._buffer(v) for k, v in inputs.items()}
-            step = self.step_graphs[key] = StepGraph(
-                name, self._tapped(body) if tap else body, {**args, **fixed, **extra},
-                state=tuple(leaves(state)), warmup=WARMUP_RUNS if warm else 0)
-        for k, v in inputs.items():
-            self._fill(step.args[k], v)
+        with span("dvmvs.engine.fill"):
+            tap = self._recording is not None and cost_volumes
+            shapes, addresses = self._signature(inputs, fixed)
+            key = (name, tap, shapes, addresses)
+            step = self.step_graphs.get(key)
+            if step is None:
+                if addresses:  # drop the graphs of a bank that is not the engine's own
+                    owned = set(map(self._where, leaves(self._bank)))
+                    n = len(self.step_graphs)
+                    self.step_graphs = {k: v for k, v in self.step_graphs.items()
+                                        if not k[3] or k[3] == addresses or set(k[3]) <= owned}
+                    counters.add("graph.evictions", n - len(self.step_graphs))
+                warm = key[:3] not in self._warmed
+                self._warmed.add(key[:3])
+                args = {k: self._buffer(v) for k, v in inputs.items()}
+                step = self.step_graphs[key] = StepGraph(
+                    name, self._tapped(body) if tap else body, {**args, **fixed, **extra},
+                    state=tuple(leaves(state)), warmup=WARMUP_RUNS if warm else 0)
+            for k, v in inputs.items():
+                self._fill(step.args[k], v)
         out = step.run()
         if tap:
             out, cvs = out
@@ -216,7 +233,10 @@ class InferenceEngine:
     def _readback(depth: torch.Tensor) -> np.ndarray:
         """The host copy of a (1, H, W) depth, the step's one host sync (a
         copy on the CPU too, where ``.cpu()`` would alias the buffer)."""
-        return depth[0].to("cpu", copy=True).numpy()
+        with span("dvmvs.engine.readback"):
+            out = depth[0].to("cpu", copy=True).numpy()
+        counters.add("engine.d2h_bytes", out.nbytes)
+        return out
 
     def _copy_out(self, tensor: torch.Tensor) -> torch.Tensor:
         """What a caller keeps of a step's output: on the graph path a copy,
@@ -360,13 +380,14 @@ class InferenceEngine:
         V, n = self.V, len(meas_half)
         if not 1 <= n <= V:
             raise ValueError(f"need 1..{V} measurement frames, got {n}")
-        mask = np.zeros((V,), np.float32)
-        mask[:n] = 1.0
-        mposes = np.stack(list(meas_poses) + [meas_poses[0]] * (V - n))
-        geometry = np.concatenate([np.ravel(ref_pose), np.ravel(mposes), np.ravel(K), mask])
-        return {"image": np.asarray(ref_image, np.float32)[None],
-                "meas": list(meas_half) + [meas_half[0]] * (V - n),
-                "geometry": geometry.astype(np.float32)}
+        with span("dvmvs.engine.inputs"):
+            mask = np.zeros((V,), np.float32)
+            mask[:n] = 1.0
+            mposes = np.stack(list(meas_poses) + [meas_poses[0]] * (V - n))
+            geometry = np.concatenate([np.ravel(ref_pose), np.ravel(mposes), np.ravel(K), mask])
+            return {"image": np.asarray(ref_image, np.float32)[None],
+                    "meas": list(meas_half) + [meas_half[0]] * (V - n),
+                    "geometry": geometry.astype(np.float32)}
 
     @torch.inference_mode()
     def encode(self, image: np.ndarray):
@@ -439,11 +460,13 @@ class InferenceEngine:
         if store is None or store[1].shape[0] < n or store[0][0].dtype != dtype:
             rows = -(-n // BANK_ROWS) * BANK_ROWS
             self._bank = store = None  # free the old storage before the new one
-            store = self._bank = (
-                tuple(torch.zeros((rows,) + tuple(f.shape[1:]), dtype=dtype, device=self.device)
-                      for f in feats),
-                torch.zeros((rows,) + tuple(images.shape[1:]), dtype=images.dtype,
-                            device=self.device))
+            with span("dvmvs.engine.bank_alloc"):
+                store = self._bank = (
+                    tuple(torch.zeros((rows,) + tuple(f.shape[1:]), dtype=dtype,
+                                      device=self.device) for f in feats),
+                    torch.zeros((rows,) + tuple(images.shape[1:]), dtype=images.dtype,
+                                device=self.device))
+            counters.add("bank.allocations")
         return store
 
     @torch.inference_mode()

@@ -36,9 +36,12 @@ chosen while the graph was captured, so the graph computes in IEEE float32
 whatever the process's TF32 flags are at the replay.
 
 The kernel wrappers (the plane sweep's forward and backward, the DLT
-solve) count their launches in Python, which a replay does not run: the
-count a capture records is added back at every replay, and the capture's
-own (recorded, not launched) counts are taken away.
+solve) count their launches in Python (``utils/profiling.py::counters``),
+which a replay does not run: the count a capture records is added back at
+every replay, and the capture's own (recorded, not launched) counts are
+taken away. A run is the span ``dvmvs.graph.run`` and a capture, warm-up
+included, ``dvmvs.graph.capture``; the counters ``graph.builds`` and
+``graph.captures`` count the graphs made and captured.
 """
 
 from __future__ import annotations
@@ -49,11 +52,16 @@ import torch
 
 from dvmvs_tpu_torch.ops import dlt, plane_sweep
 from dvmvs_tpu_torch.utils.precision import ieee_float32
+from dvmvs_tpu_torch.utils.profiling import counters, span
 
 # warm-up runs before a capture, on a side stream (PyTorch's graph docs):
 # they build the kernels, the cuBLAS / cuDNN handles and workspaces and the
 # convolution plans outside the capture
 WARMUP_RUNS = 2
+
+# the kernel launch counters a graph records at its capture and adds back
+# at each replay
+LAUNCHES = (plane_sweep.FORWARD_LAUNCHES, plane_sweep.BACKWARD_LAUNCHES, dlt.LAUNCHES)
 
 
 def leaves(tree) -> Iterator[torch.Tensor]:
@@ -89,12 +97,10 @@ def fill(buffer: torch.Tensor, value: torch.Tensor):
         buffer.copy_(value)
 
 
-def _launch_counts():
-    return plane_sweep.launch_count, plane_sweep.backward_launch_count, dlt.launch_count
-
-
-def _set_launch_counts(counts):
-    plane_sweep.launch_count, plane_sweep.backward_launch_count, dlt.launch_count = counts
+def _add_launches(counts):
+    for name, n in zip(LAUNCHES, counts):
+        if n:
+            counters.add(name, n)
 
 
 class StepGraph:
@@ -120,31 +126,35 @@ class StepGraph:
         self.device = next(leaves(args)).device
         self.graph = None
         self.outputs = None
-        # kernel launches inside the graph: plane sweep forward, backward, DLT solve
+        # kernel launches inside the graph, as counted under LAUNCHES
         self.launches = (0, 0, 0)
+        counters.add("graph.builds")
 
     def run(self):
         """One step; returns the output buffers (valid until the next run)."""
-        if self.device.type != "cuda":
-            with ieee_float32():
-                out = self.body(**self.args)
-            if self.outputs is None:
-                self.outputs = tree_map(torch.empty_like, out)
-            for dst, src in zip(leaves(self.outputs), leaves(out)):
-                dst.copy_(src)
+        with span("dvmvs.graph.run"):
+            if self.device.type != "cuda":
+                with ieee_float32():
+                    out = self.body(**self.args)
+                if self.outputs is None:
+                    self.outputs = tree_map(torch.empty_like, out)
+                for dst, src in zip(leaves(self.outputs), leaves(out)):
+                    dst.copy_(src)
+                return self.outputs
+            if self.graph is None:
+                with ieee_float32(), span("dvmvs.graph.capture"):
+                    self._capture()
+            try:
+                self.graph.replay()
+            except RuntimeError as err:
+                raise RuntimeError(f"replay of the CUDA graph of {self.owner} step "
+                                   f"{self.name!r} failed ({self.eager} is the eager path)"
+                                   ) from err
+            _add_launches(self.launches)
             return self.outputs
-        if self.graph is None:
-            with ieee_float32():
-                self._capture()
-        try:
-            self.graph.replay()
-        except RuntimeError as err:
-            raise RuntimeError(f"replay of the CUDA graph of {self.owner} step {self.name!r} "
-                               f"failed ({self.eager} is the eager path)") from err
-        _set_launch_counts(tuple(a + b for a, b in zip(_launch_counts(), self.launches)))
-        return self.outputs
 
     def _capture(self):
+        counters.add("graph.captures")
         current = torch.cuda.current_stream(self.device)
         if self.warmup:
             # outside autograd: a clone of a parameter would keep its
@@ -161,7 +171,7 @@ class StepGraph:
                 for t, s in zip(self.state, saved):
                     t.copy_(s)
         graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
+        before = [counters[name] for name in LAUNCHES]
         try:
             # thread_local: a CUDA call of another thread (NCCL's watchdog,
             # a host prefetcher) does not invalidate this thread's capture
@@ -172,6 +182,6 @@ class StepGraph:
                 f"CUDA graph capture of {self.owner} step {self.name!r} failed; it is not run "
                 f"eagerly instead ({self.eager} is the eager path)") from err
         finally:
-            recorded = tuple(a - b for a, b in zip(_launch_counts(), before))
-            _set_launch_counts(before)
+            recorded = tuple(counters[name] - b for name, b in zip(LAUNCHES, before))
+            _add_launches(-n for n in recorded)
         self.graph, self.outputs, self.launches = graph, outputs, recorded

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 import dvmvs_tpu_torch.apps.run_testing_baseline  # noqa: F401  (registry population)
+from dvmvs_tpu_torch.apps.graphs import LAUNCHES
 from dvmvs_tpu_torch.baselines import BASELINE_REGISTRY
 from dvmvs_tpu_torch.baselines.deltas import (
     BORDER,
@@ -50,8 +51,8 @@ from dvmvs_tpu_torch.baselines.deltas import (
 )
 from dvmvs_tpu_torch.baselines.dpsnet import inverse_warp
 from dvmvs_tpu_torch.baselines.mvdepthnet import l1_cost_volume, upload_views
-from dvmvs_tpu_torch.ops import dlt, plane_sweep
 from dvmvs_tpu_torch.utils.precision import ieee_float32
+from dvmvs_tpu_torch.utils.profiling import counters
 
 NAMES = ("mvdepthnet", "gpmvs", "dpsnet", "deltas")
 PREDICT_RANGE = "baseline.predict"
@@ -234,9 +235,10 @@ def compare_paths(name: str, keyframes, rounds: int) -> dict:
                 t0 = time.perf_counter()
                 est.predict(*kf)
                 times[mode].append((time.perf_counter() - t0) * 1e3)
-    plane_sweep.launch_count = plane_sweep.backward_launch_count = dlt.launch_count = 0
+    before = counters.snapshot()
     run("graphs")
-    launches = (plane_sweep.launch_count, plane_sweep.backward_launch_count, dlt.launch_count)
+    moved = counters.since(before)
+    launches = tuple(moved.get(name, 0) for name in LAUNCHES)
     run("eager")
     report = {
         "keyframes": len(keyframes), "rounds": rounds,

@@ -39,6 +39,16 @@ Each rank's engine runs its steps as graph replays, as on one device (the
 JAX driver's jitted programs on sharded inputs); the gathers run between
 them. ``--scan-chunk`` is for one device, as in the JAX driver: with more
 than one device each step is a replay and a readback.
+
+Under ``torch.profiler`` the batched evaluators' host work shows as spans
+(``utils/profiling.py::span``): ``dvmvs.bulk.index`` (the index file, the
+unique frames and the bank index, once a scene), ``dvmvs.bulk.frames``
+(loading, stacking and uploading a batch of bank frames),
+``dvmvs.bulk.schedule`` (the step table and its upload) and
+``dvmvs.bulk.readback`` (a chunk's copy to the host). The counters
+``bulk.slots`` and ``bulk.pad_slots`` count the keyframe slots the chunks
+compute and those no keyframe asked for; ``main`` prints every counter
+that moved over the run.
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from dvmvs_tpu_torch.data.preprocess import PreprocessImage
 from dvmvs_tpu_torch.parallel import mesh
 from dvmvs_tpu_torch.utils.checkpoint import load_checkpoint
 from dvmvs_tpu_torch.utils.precision import describe
+from dvmvs_tpu_torch.utils.profiling import counters, describe_counts, span
 from dvmvs_tpu_torch.utils.results import InferenceTimer, save_results
 from dvmvs_tpu_torch.utils.visualization import VIS_DIR, save_visualization
 
@@ -206,7 +217,9 @@ def _encode_bank(engine: InferenceEngine, names: Sequence, load, batch: int, dty
     them belong to no frame of this bank."""
     n, bank, images = len(names), None, None
     for s in range(0, n, batch):
-        imgs = engine.images(np.stack([load(x) for x in _pad_to(list(names[s:s + batch]), batch)]))
+        with span("dvmvs.bulk.frames"):
+            imgs = engine.images(np.stack([load(x)
+                                           for x in _pad_to(list(names[s:s + batch]), batch)]))
         feats = engine.encode_batch(imgs)
         if bank is None:
             bank, images = engine.bank_storage(n, dtype, feats, imgs)
@@ -270,37 +283,42 @@ def evaluate_scene_batched(engine: InferenceEngine, scene_folder: str, index_fil
         raise ValueError("batched evaluation needs the stateless model (pairnet)")
     dtype = _check_dtype(bank_dtype)
     V, B = cfg.n_measurement_frames, batch_size
-    entries = [line.split(" ") for line in read_index(index_file) if line != "TRACKING LOST"]
-    if max_frames is not None:
-        entries = entries[:max_frames]
+    with span("dvmvs.bulk.index"):
+        entries = [line.split(" ") for line in read_index(index_file) if line != "TRACKING LOST"]
+        if max_frames is not None:
+            entries = entries[:max_frames]
+        unique = list(dict.fromkeys(n for e in entries for n in e))
+        bank_index = {n: i for i, n in enumerate(unique)}
     if not entries:
         return [], ([] if evaluate else None)
     if assets is None:
         assets = SceneAssets(scene_folder, cfg, evaluate)
-    unique = list(dict.fromkeys(n for e in entries for n in e))
-    bank_index = {n: i for i, n in enumerate(unique)}
     rank, world = mesh.rank(group), mesh.world_size(group)
     rows = slice(rank * B // world, (rank + 1) * B // world)
     K_b = engine.upload(np.tile(assets.updated_K[None], (B // world, 1, 1)))
 
     t0 = time.perf_counter()
     bank, images = _encode_bank(engine, unique, assets.image, B, dtype)
-    schedule = _scan_schedule(-(-len(entries) // B), max(scan_chunk, 1))
-    steps = {"ref_idx": [], "meas_idx": [], "view_mask": [], "ref_pose": [], "meas_pose": []}
-    for e in _pad_to(entries, sum(schedule) * B):
-        names, mask = _views(e[1:], V)
-        steps["ref_idx"].append(bank_index[e[0]])
-        steps["meas_idx"].append([bank_index[n] for n in names])
-        steps["view_mask"].append(mask)
-        steps["ref_pose"].append(assets.pose(e[0]))
-        steps["meas_pose"].append([assets.pose(n) for n in names])
-    xs = _upload_steps(engine, {k: np.asarray(v).reshape((-1, B) + np.shape(v)[1:])[:, rows]
-                                for k, v in steps.items()})
+    with span("dvmvs.bulk.schedule"):
+        schedule = _scan_schedule(-(-len(entries) // B), max(scan_chunk, 1))
+        counters.add("bulk.slots", sum(schedule) * B)
+        counters.add("bulk.pad_slots", sum(schedule) * B - len(entries))
+        steps = {"ref_idx": [], "meas_idx": [], "view_mask": [], "ref_pose": [], "meas_pose": []}
+        for e in _pad_to(entries, sum(schedule) * B):
+            names, mask = _views(e[1:], V)
+            steps["ref_idx"].append(bank_index[e[0]])
+            steps["meas_idx"].append([bank_index[n] for n in names])
+            steps["view_mask"].append(mask)
+            steps["ref_pose"].append(assets.pose(e[0]))
+            steps["meas_pose"].append([assets.pose(n) for n in names])
+        xs = _upload_steps(engine, {k: np.asarray(v).reshape((-1, B) + np.shape(v)[1:])[:, rows]
+                                    for k, v in steps.items()})
     predictions, c = [], 0
     for step in schedule:
         out = engine.predict_pair_steps(bank, images, K_b, {k: v[c:c + step] for k, v in xs.items()})
         out = _gather_rows(out, group)
-        predictions.extend(out.reshape((-1,) + tuple(out.shape[2:])).cpu().numpy())
+        with span("dvmvs.bulk.readback"):
+            predictions.extend(out.reshape((-1,) + tuple(out.shape[2:])).cpu().numpy())
         c += step
     predictions = predictions[:len(entries)]
     dt = time.perf_counter() - t0
@@ -420,15 +438,19 @@ def evaluate_scenes_batched_fusion(engine: InferenceEngine, jobs, cfg: TestConfi
                 results[si][1].append(own["assets"].gt_depth(own["steps"][t][1]))
 
     state = engine.init_batch_state(B)
-    per_step = [step_inputs(t) for t in range(sum(schedule))]
-    xs = _upload_steps(engine, {k: np.asarray([x[k] for x in per_step]) for k in per_step[0]})
+    with span("dvmvs.bulk.schedule"):
+        per_step = [step_inputs(t) for t in range(sum(schedule))]
+        xs = _upload_steps(engine, {k: np.asarray([x[k] for x in per_step]) for k in per_step[0]})
     c = 0
     for step in schedule:
         state, out = engine.fusion_steps(bank, images, K_b, state,
                                          {k: v[c:c + step] for k, v in xs.items()})
-        for dt_i, depth in enumerate(out.cpu().numpy()):
-            collect(c + dt_i, depth)
+        with span("dvmvs.bulk.readback"):
+            for dt_i, depth in enumerate(out.cpu().numpy()):
+                collect(c + dt_i, depth)
         c += step
+    counters.add("bulk.slots", sum(schedule) * B)
+    counters.add("bulk.pad_slots", sum(schedule) * B - n_predicted)
 
     dt = time.perf_counter() - t0
     print(f"scene-batched eval: {n_predicted} keyframes over {B} scenes in {dt:.2f}s "
@@ -506,6 +528,7 @@ def main(argv: Optional[Sequence[str]] = None):
 
 def _evaluate(args, cfg: TestConfig, device, group):
     lead = mesh.rank(group) == 0
+    before = counters.snapshot()
     engine = InferenceEngine(args.model, cfg, device=device)
     if args.checkpoint:
         load_checkpoint(args.checkpoint, engine.model)
@@ -551,22 +574,23 @@ def _evaluate(args, cfg: TestConfig, device, group):
                 for f, (predictions, gts) in list(zip(files, results))[:n_real]:
                     _, scene_name, system_name = parse_job(f)
                     save_results(predictions, gts, system_name, scene_name, args.output)
-        return
-
-    for i, index_file in enumerate(index_files):
-        scene_folder, scene_name, system_name = parse_job(index_file)
-        if lead:
-            print(f"Predicting for scene {scene_name} - {i}/{len(index_files)}")
-        if args.batch_size is not None:
-            predictions, gts = evaluate_scene_batched(
-                engine, scene_folder, index_file, cfg, args.batch_size, evaluate=evaluate,
-                max_frames=args.max_frames, scan_chunk=args.scan_chunk,
-                bank_dtype=args.bank_dtype, group=group)
-        else:
-            predictions, gts = evaluate_scene(engine, scene_folder, index_file, cfg,
-                                              evaluate=evaluate, max_frames=args.max_frames)
-        if lead:
-            save_results(predictions, gts, system_name, scene_name, args.output)
+    else:
+        for i, index_file in enumerate(index_files):
+            scene_folder, scene_name, system_name = parse_job(index_file)
+            if lead:
+                print(f"Predicting for scene {scene_name} - {i}/{len(index_files)}")
+            if args.batch_size is not None:
+                predictions, gts = evaluate_scene_batched(
+                    engine, scene_folder, index_file, cfg, args.batch_size, evaluate=evaluate,
+                    max_frames=args.max_frames, scan_chunk=args.scan_chunk,
+                    bank_dtype=args.bank_dtype, group=group)
+            else:
+                predictions, gts = evaluate_scene(engine, scene_folder, index_file, cfg,
+                                                  evaluate=evaluate, max_frames=args.max_frames)
+            if lead:
+                save_results(predictions, gts, system_name, scene_name, args.output)
+    if lead:
+        print(describe_counts(counters.since(before)), flush=True)
 
 
 if __name__ == "__main__":

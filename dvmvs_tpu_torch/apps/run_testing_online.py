@@ -47,6 +47,7 @@ from dvmvs_tpu_torch.utils.checkpoint import load_checkpoint
 from dvmvs_tpu_torch.utils.keyframe_buffer import KeyframeBuffer
 from dvmvs_tpu_torch.utils.native import write_mesh_ply
 from dvmvs_tpu_torch.utils.precision import describe
+from dvmvs_tpu_torch.utils.profiling import counters, describe_counts, span
 from dvmvs_tpu_torch.utils.results import InferenceTimer, save_results
 from dvmvs_tpu_torch.utils.visualization import VIS_DIR, save_visualization
 
@@ -180,6 +181,8 @@ def predict_stream(engine: InferenceEngine, frames: Iterable[np.ndarray],
     after each prediction. With ``cfg.visualize`` each prediction's panels
     (reference, best measurement frame, depth) are written under
     ``VIS_DIR``, numbered from 0, as the JAX driver writes them headless.
+    The keyframe buffer's work on a frame (the test, and for a keyframe the
+    choice of measurement frames) is the span ``dvmvs.stream.buffer``.
     """
     buf = KeyframeBuffer(
         buffer_size=cfg.keyframe_buffer_size,
@@ -193,7 +196,10 @@ def predict_stream(engine: InferenceEngine, frames: Iterable[np.ndarray],
         if max_frames is not None and len(predictions) >= max_frames:
             break
         # keyframe entry: (pose, cached half-res features on the device)
-        response = buf.try_new_keyframe(pose, None)
+        with span("dvmvs.stream.buffer"):
+            response = buf.try_new_keyframe(pose, None)
+            if response == 1:
+                measurement_frames = buf.get_best_measurement_frames(cfg.n_measurement_frames)
         if response in (2, 4, 5):
             continue
         if response == 3:  # tracking lost: the buffer was cleared
@@ -206,7 +212,6 @@ def predict_stream(engine: InferenceEngine, frames: Iterable[np.ndarray],
             buf.buffer[-1] = (pose, engine.encode(image)[0], kept)
             continue
 
-        measurement_frames = buf.get_best_measurement_frames(cfg.n_measurement_frames)
         if timer is not None:
             timer.record_start_time()
         depth, f_half = engine.encode_and_predict(
@@ -230,7 +235,9 @@ def predict_scene(engine: InferenceEngine, scene_path: str, cfg: TestConfig,
                   live_tsdf: Optional[LiveTSDF] = None):
     """Predict every keyframe of a scene directory, fusing each depth into
     ``live_tsdf`` when given. Returns (predictions, ground-truth depths of
-    the predicted frames, or None)."""
+    the predicted frames, or None). Prints the timer's statistics and the
+    counters (``utils/profiling.py``) that moved over the scene."""
+    before = counters.snapshot()
     scene = load_scene(scene_path)
     raw = _FramePrefetcher(scene.image_filenames[: len(scene.poses)], load_image)
     try:
@@ -261,6 +268,7 @@ def predict_scene(engine: InferenceEngine, scene_path: str, cfg: TestConfig,
     finally:
         raw.close()
     timer.print_statistics()
+    print(describe_counts(counters.since(before)))
     reference_depths = None
     if evaluate and scene.depth_filenames:
         reference_depths = [

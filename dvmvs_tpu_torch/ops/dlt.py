@@ -21,11 +21,13 @@ import functools
 import torch
 
 from dvmvs_tpu_torch.ops import cuda_build
+from dvmvs_tpu_torch.utils.profiling import counters
 
 KERNELS = ("dlt_solve",)
 
-# Launches of the CUDA kernel in this process (never the plain version's)
-launch_count = 0
+# Launches of the CUDA kernel (never the plain version's) are counted under
+# this name of ``utils/profiling.py::counters``
+LAUNCHES = "dlt.launches"
 
 
 def dlt_solve_plain(A: torch.Tensor) -> torch.Tensor:
@@ -76,10 +78,9 @@ def dlt_solve(A: torch.Tensor) -> torch.Tensor:
     """The right singular vectors (..., 4, 4) of the systems A (..., R, 4),
     contiguous float32: the plain version on the CPU, the kernel on the card
     (it raises if the kernel cannot run)."""
-    global launch_count
     _check(A)
     if A.device.type == "cpu":
         return dlt_solve_plain(A)
     vh = launch(A)
-    launch_count += 1
+    counters.add(LAUNCHES)
     return vh

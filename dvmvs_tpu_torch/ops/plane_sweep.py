@@ -34,13 +34,15 @@ import torch.nn.functional as F
 
 from dvmvs_tpu_torch.ops import cuda_build
 from dvmvs_tpu_torch.ops.geometry import inverse_pose, matmul_f32
+from dvmvs_tpu_torch.utils.profiling import counters
 
 KERNELS = ("plane_sweep", "plane_sweep_bwd")
 
-# Launches of the CUDA kernels in this process (never the plain versions'):
-# one a backward call, and one a forward call of up to 51 views.
-launch_count = 0
-backward_launch_count = 0
+# Launches of the CUDA kernels are counted (never the plain versions'), one
+# a backward call and one a forward call of up to 51 views, under these
+# names of ``utils/profiling.py::counters``
+FORWARD_LAUNCHES = "plane_sweep.launches"
+BACKWARD_LAUNCHES = "plane_sweep.backward_launches"
 
 
 def build_plane_matrices(ref_pose, meas_pose, K, inv_depths):
@@ -189,19 +191,17 @@ def launch_forward(fn, ref, meas, mats, weights, dot_product: bool = True):
 
 def _sweep(ref, meas, mats, weights, dot_product: bool):
     """The forward: plain version on the CPU, the kernel on the card."""
-    global launch_count
     _check(ref, meas, mats, weights)
     if ref.device.type == "cpu":
         return plane_sweep_multiview_plain(ref, meas, mats, weights, dot_product)
     out = launch_forward(_entry("plane_sweep"), ref, meas, mats, weights, dot_product)
-    launch_count += _forward_launches(mats.shape[1])
+    counters.add(FORWARD_LAUNCHES, _forward_launches(mats.shape[1]))
     return out
 
 
 def plane_sweep_backward(ref, meas, mats, weights, g):
     """(d_ref, d_meas) of the dot-mode sweep for the cotangent g (B, P, H, W):
     plain version on the CPU, ``csrc/plane_sweep_bwd.cu`` on the card."""
-    global backward_launch_count
     _check(ref, meas, mats, weights)
     B, H, W, C = ref.shape
     V, P = mats.shape[1:3]
@@ -213,7 +213,7 @@ def plane_sweep_backward(ref, meas, mats, weights, g):
     if ref.device.type == "cpu":
         return plane_sweep_backward_plain(ref, meas, mats, weights, g)
     out = launch_backward(_entry("plane_sweep_bwd"), ref, meas, mats, weights, g)
-    backward_launch_count += 1
+    counters.add(BACKWARD_LAUNCHES)
     return out
 
 

@@ -75,6 +75,7 @@ from dvmvs_tpu_torch.models.training_heads import fusionnet_train_sequence, pair
 from dvmvs_tpu_torch.utils.losses import multi_scale_loss
 from dvmvs_tpu_torch.utils.optim import init_optimizer_state
 from dvmvs_tpu_torch.utils.precision import ieee_float32
+from dvmvs_tpu_torch.utils.profiling import span
 
 # Unfreeze schedules (top-level module names), per reference driver.
 FUSIONNET_STAGES: List[List[str]] = [
@@ -288,7 +289,9 @@ class GraphedTrainStep:
     read them before it. Loads of weights (``load_state_dict``) and of the
     optimizer state (``utils/checkpoint.py::load_optimizer_state``) copy in
     place, so they take effect in a graph captured before them. A capture or
-    replay that fails raises; nothing runs eagerly instead."""
+    replay that fails raises; nothing runs eagerly instead. Under
+    ``torch.profiler`` the batch's copy-in is the span ``dvmvs.train.fill``,
+    the step ``dvmvs.graph.run``."""
 
     def __init__(self, model, kind: str = "fusionnet", loss_type: str = "L1-inv",
                  two_way: bool = False, group=None):
@@ -348,6 +351,7 @@ class GraphedTrainStep:
         return step
 
     def _run(self, step: StepGraph, batch):
-        for k, v in batch.items():
-            fill(step.args["batch"][k], v)
+        with span("dvmvs.train.fill"):
+            for k, v in batch.items():
+                fill(step.args["batch"][k], v)
         return step.run()

@@ -1,22 +1,81 @@
 """Profiling and tracing (counterpart of dvmvs_tpu/utils/profiling.py; the
 reference's only tool is its InferenceTimer, dvmvs/utils.py:369-402).
 
+Three tools, all host-side:
+
+  - ``device_trace(log_dir)``: a ``torch.profiler`` trace of a block, written
+    as ``log_dir/trace.json``. Open it in Perfetto or chrome://tracing; with
+    a card present it holds the CUDA kernels, copies and fills beside the
+    host operations, on one clock.
+  - ``span(name)``: a named host range in that trace. The port opens
+    ``dvmvs.<part>.<what>`` spans where its host work happens (the online
+    driver's keyframe buffer, the engine's input packing, copy-in and
+    readback, each graph run and capture, the bulk driver's index, frames,
+    schedule and readback, the training step's copy-in), so the trace says
+    what the host was doing while the card sat idle. A span is free when
+    nothing profiles: it returns one shared null context. A span inside a
+    captured step body would run at the capture only, never at a replay, so
+    none is put there.
+  - ``counters``: named counts of work in this process (kernel launches,
+    graph builds, captures and evictions, bank allocations, bytes copied
+    in and out, bulk slots computed and padded). ``snapshot()`` and
+    ``since(snapshot)`` give the counts over a stretch; ``predict_scene``
+    and ``run_testing`` print them at the end of a run.
+
 Usage:
     with device_trace("/tmp/trace"):
         depth = engine.encode_and_predict(...)   # returns host arrays
-Open the Chrome trace it writes (``trace.json``) in Perfetto or
-chrome://tracing. With a card present the trace holds the CUDA kernels
-beside the host operations.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+from typing import Dict
 
 import torch
 
-from dvmvs_tpu_torch.utils.results import InferenceTimer
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host range ``name`` in the running ``torch.profiler`` trace; the
+    shared null context when no profiler runs (about 0.1-0.4 us, against
+    several for an idle ``record_function``)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+class Counters:
+    """Named whole-number counts; a name never counted reads 0."""
+
+    def __init__(self):
+        self._counts: Dict[str, int] = {}
+
+    def add(self, name: str, n: int = 1):
+        self._counts[name] = self._counts.get(name, 0) + n
+
+    def __getitem__(self, name: str) -> int:
+        return self._counts.get(name, 0)
+
+    def snapshot(self) -> Dict[str, int]:
+        return dict(self._counts)
+
+    def since(self, snapshot: Dict[str, int]) -> Dict[str, int]:
+        """The counts that moved after ``snapshot``, by how much."""
+        return {k: v - snapshot.get(k, 0) for k, v in sorted(self._counts.items())
+                if v != snapshot.get(k, 0)}
+
+
+# the process's counters (the kernel wrappers, StepGraph, the engine and the
+# bulk evaluators count into them)
+counters = Counters()
+
+
+def describe_counts(counts: Dict[str, int]) -> str:
+    """One line of counts, as the drivers print them."""
+    return "counters: " + (", ".join(f"{k} {v}" for k, v in sorted(counts.items())) or "none")
 
 
 @contextlib.contextmanager
@@ -32,22 +91,3 @@ def device_trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class StepTimer:
-    """Per-step wall times with a warm-up skip (``InferenceTimer``) as a
-    context manager. The step must end in a host readback or a
-    ``torch.cuda.synchronize()``: the card runs behind the host."""
-
-    def __init__(self, n_skip: int = 20):
-        self._timer = InferenceTimer(n_skip)
-
-    def __enter__(self):
-        self._timer.record_start_time()
-        return self
-
-    def __exit__(self, *exc):
-        self._timer.record_end_time_and_elapsed_time()
-
-    def print_statistics(self):
-        self._timer.print_statistics()

@@ -40,6 +40,7 @@ from dvmvs_tpu_torch.data import synthetic
 from dvmvs_tpu_torch.ops import plane_sweep
 from dvmvs_tpu_torch.apps import bench_bulk
 from dvmvs_tpu_torch.utils.checkpoint import save_checkpoint
+from dvmvs_tpu_torch.utils.profiling import counters
 from tests.test_drivers_e2e import png_scene, tiny_cfg  # noqa: F401 (fixtures)
 from tests.test_torch_engine import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -146,9 +147,9 @@ def _assert_gts(got, want):
 def test_evaluate_scene_matches_jax(engines, jax_runs, scene, indices, tiny_cfg, kind):
     """The sequential driver, with the TRACKING LOST reset of the index."""
     engine = engines[kind][1]
-    before = plane_sweep.launch_count
+    before = counters[plane_sweep.FORWARD_LAUNCHES]
     got, gts = rt.evaluate_scene(engine, scene, indices["e2e"], tiny_cfg)
-    assert plane_sweep.launch_count == before  # the CPU takes the plain version
+    assert counters[plane_sweep.FORWARD_LAUNCHES] == before  # the CPU takes the plain version
     want, want_gts = jax_runs[f"seq_{kind}"]
     assert len(got) == 3
     print(f"{kind}: max relative depth difference {_assert_depths(got, want):.3e}")

@@ -23,6 +23,7 @@ from dvmvs_tpu.ops import cost_volume as jcv
 from dvmvs_tpu.ops.pallas import cost_volume_kernel as jk
 from dvmvs_tpu_torch.ops import cost_volume as tcv
 from dvmvs_tpu_torch.ops import plane_sweep as tps
+from dvmvs_tpu_torch.utils.profiling import counters
 
 H, W, C, P = 32, 48, 8, 16  # half-res features of 64x96 frames
 ATOL = 5e-4
@@ -92,7 +93,7 @@ def test_plain_sweep_matches_pallas_band_kernel(rng, euler, t, c, dot_product):
         jnp.asarray(ref), jnp.asarray(meas), mats, jnp.asarray(weights),
         interpret=True, band_h=band, dot_product=dot_product)
     got = _port_sweep(ref, meas, mats, weights, dot_product)
-    assert tps.launch_count == 0  # CPU tensors take the plain version
+    assert counters[tps.FORWARD_LAUNCHES] == 0  # CPU tensors take the plain version
     assert got.shape == (P, H, W)
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
 

@@ -25,6 +25,7 @@ from dvmvs_tpu_torch import config
 from dvmvs_tpu_torch.apps.graphs import WARMUP_RUNS
 from dvmvs_tpu_torch.ops import plane_sweep as tps
 from dvmvs_tpu_torch.ops.cost_volume import inverse_depth_planes
+from dvmvs_tpu_torch.utils.profiling import counters
 
 pytestmark = pytest.mark.cuda
 
@@ -83,10 +84,10 @@ def test_kernel_matches_plain(cuda_device, euler, t, c, weights, dot_product):
     ref, meas, mats = _case(0, euler, t, c, cuda_device)
     w = torch.tensor([weights], dtype=torch.float32, device=cuda_device)
     want = tps.plane_sweep_multiview_plain(ref, meas, mats, w, dot_product)
-    before = tps.launch_count
+    before = counters[tps.FORWARD_LAUNCHES]
     got = tps.plane_sweep_multiview(ref, meas, mats, w, dot_product)
     torch.cuda.synchronize()
-    assert tps.launch_count == before + 1
+    assert counters[tps.FORWARD_LAUNCHES] == before + 1
     assert torch.isfinite(got).all()
     err = (got - want).abs().max().item()
     assert err <= ATOL[dot_product]
@@ -132,10 +133,10 @@ def test_kernel_on_ragged_shapes(cuda_device, shape):
         w = (w / w.sum()).repeat(B, 1)
     for dot in (True, False):
         want = tps.plane_sweep_multiview_plain(ref, meas, mats, w, dot)
-        before = tps.launch_count
+        before = counters[tps.FORWARD_LAUNCHES]
         got = tps.plane_sweep_multiview(ref, meas, mats, w, dot)
         torch.cuda.synchronize()
-        assert tps.launch_count - before == -(-V_ // 51)  # 51 views fit one launch
+        assert counters[tps.FORWARD_LAUNCHES] - before == -(-V_ // 51)  # 51 views fit one launch
         assert got.shape == (B, P_, H_, W_)
         # the L1 cost sums over the channels: its limit grows with C past 32
         assert (got - want).abs().max().item() <= ATOL[dot] * (max(C / 32, 1) if not dot else 1)
@@ -189,13 +190,13 @@ def test_engine_streams_through_kernel(cuda_device, kind):
         poses.append(pose)
     K = np.array([[70.0, 0, 48], [0, 70.0, 32], [0, 0, 1]], np.float32)
     engine = InferenceEngine(kind, cfg, device=cuda_device, seed=4)
-    before = tps.launch_count
+    before = counters[tps.FORWARD_LAUNCHES]
     predictions, indices = predict_stream(engine, frames, poses, K, cfg)
     assert indices == [1, 2, 3, 4, 5]
-    assert tps.launch_count - before == len(predictions) + WARMUP_RUNS
-    before = tps.launch_count
+    assert counters[tps.FORWARD_LAUNCHES] - before == len(predictions) + WARMUP_RUNS
+    before = counters[tps.FORWARD_LAUNCHES]
     again, _ = predict_stream(engine, frames, poses, K, cfg)
-    assert tps.launch_count - before == len(predictions)
+    assert counters[tps.FORWARD_LAUNCHES] - before == len(predictions)
     for p, q in zip(predictions, again):
         np.testing.assert_array_equal(p, q)
     want, _ = predict_stream(InferenceEngine(kind, cfg, device="cpu", seed=4), frames, poses, K,
@@ -259,10 +260,10 @@ def test_backward_kernel_matches_autograd_through_plain(cuda_device, case):
     d_meas exactly 0."""
     ref, meas, mats, w, g = cs.bwd_case(torch, tps, 0, case, cuda_device)
     want_ref, want_meas = tps.plane_sweep_backward_plain(ref, meas, mats, w, g)
-    before = tps.backward_launch_count
+    before = counters[tps.BACKWARD_LAUNCHES]
     got_ref, got_meas = tps.plane_sweep_backward(ref, meas, mats, w, g)
     torch.cuda.synchronize()
-    assert tps.backward_launch_count == before + 1
+    assert counters[tps.BACKWARD_LAUNCHES] == before + 1
     assert torch.isfinite(got_ref).all() and torch.isfinite(got_meas).all()
     _grad_close(got_ref, want_ref)
     _grad_close(got_meas, want_meas)
@@ -294,12 +295,13 @@ def test_wrapper_gradients_on_the_card(cuda_device):
     ref, meas, mats = _case(4, [2, 3, 1], [0.12, 0.03, 0.02], 32, cuda_device)
     w = torch.full((1, V), 0.5, device=cuda_device)
     r, m = ref.clone().requires_grad_(), meas.clone().requires_grad_()
-    before = (tps.launch_count, tps.backward_launch_count)
+    before = (counters[tps.FORWARD_LAUNCHES], counters[tps.BACKWARD_LAUNCHES])
     out = tps.plane_sweep_multiview(r, m, mats, w)
     assert out.grad_fn is not None
     out.square().sum().backward()
     torch.cuda.synchronize()
-    assert (tps.launch_count, tps.backward_launch_count) == (before[0] + 1, before[1] + 1)
+    assert (counters[tps.FORWARD_LAUNCHES], counters[tps.BACKWARD_LAUNCHES]) == (before[0] + 1,
+                                                                                  before[1] + 1)
     want_r, want_m = ref.clone().requires_grad_(), meas.clone().requires_grad_()
     tps.plane_sweep_multiview_plain(want_r, want_m, mats, w).square().sum().backward()
     _grad_close(r.grad, want_r.grad)
@@ -326,13 +328,14 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, freeze_bn):
                              depth=config.DepthConfig(0.25, 20.0, 16))
     cpu = make_model("fusionnet", cfg, "cpu", seed=1).train(not freeze_bn)
     card = copy.deepcopy(cpu).to(cuda_device)
-    before = (tps.launch_count, tps.backward_launch_count)
+    before = (counters[tps.FORWARD_LAUNCHES], counters[tps.BACKWARD_LAUNCHES])
     metrics = {}
     for model, device in ((card, cuda_device), (cpu, "cpu")):
         opt = tt.make_optimizer(model, tt.FUSIONNET_STAGES[2])
         metrics[device] = tt.train_step(model, opt, cs.small_batch(torch, device), "fusionnet")
     torch.cuda.synchronize()
-    assert tps.launch_count - before[0] == 2 and tps.backward_launch_count - before[1] == 2
+    assert counters[tps.FORWARD_LAUNCHES] - before[0] == 2
+    assert counters[tps.BACKWARD_LAUNCHES] - before[1] == 2
     want = metrics["cpu"]["loss"].item()
     assert abs(metrics[cuda_device]["loss"].item() - want) <= cs.STEP_RTOL * abs(want)
     grad_gap, stat_gap = cs.train_step_gaps(torch, cpu, card, freeze_bn)
@@ -348,10 +351,10 @@ def test_kernel_at_the_bulk_shape(cuda_device):
     second view masked in every other one, launched once."""
     ref, meas, mats, w = cs.bulk_case(torch, tps, 4, cuda_device)
     want = tps.plane_sweep_multiview_plain(ref, meas, mats, w)
-    before = tps.launch_count
+    before = counters[tps.FORWARD_LAUNCHES]
     got = tps.plane_sweep_multiview(ref, meas, mats, w)
     torch.cuda.synchronize()
-    assert tps.launch_count == before + 1
+    assert counters[tps.FORWARD_LAUNCHES] == before + 1
     assert (got - want).abs().max().item() <= ATOL[True]
 
 
@@ -394,7 +397,7 @@ def test_bulk_steps_on_the_card_match_the_cpu(cuda_device, kind):
         if device != "cpu":  # the first call captures
             run_bulk_steps(engine, kind, bank, images, K, xs)
             torch.cuda.synchronize()
-        before = tps.launch_count
+        before = counters[tps.FORWARD_LAUNCHES]
         if device != "cpu":
             torch.cuda.set_sync_debug_mode("error")
         try:
@@ -403,7 +406,7 @@ def test_bulk_steps_on_the_card_match_the_cpu(cuda_device, kind):
             torch.cuda.set_sync_debug_mode("default")
         out[str(device)] = depth.cpu().numpy()
         if device != "cpu":
-            assert tps.launch_count - before == 3
+            assert counters[tps.FORWARD_LAUNCHES] - before == 3
     got, want = out[str(cuda_device)], out["cpu"]
     assert got.shape == (3, 4, 64, 96) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-5)
@@ -442,10 +445,10 @@ def test_kernel_at_the_baselines_l1_rgb_shape(cuda_device, weights):
     ref, meas, mats, w = sweep_case(cs.BASELINE_SWEEP, weights=weights, device=cuda_device,
                                     depths=cs.BASELINE_DEPTHS)
     want = tps.plane_sweep_multiview_plain(ref, meas, mats, w, False)
-    before = tps.launch_count
+    before = counters[tps.FORWARD_LAUNCHES]
     got = tps.plane_sweep_multiview(ref, meas, mats, w, False)
     torch.cuda.synchronize()
-    assert tps.launch_count == before + 1
+    assert counters[tps.FORWARD_LAUNCHES] == before + 1
     assert got.shape == (1, 64, 256, 320) and torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= ATOL[False]
 
@@ -494,11 +497,11 @@ def test_baselines_on_the_card_match_the_cpu(cuda_device, name):
         return
     out = {}
     for d, est in ests.items():
-        before = tps.launch_count
+        before = counters[tps.FORWARD_LAUNCHES]
         out[d] = [est.predict(*f[:4], K) for f in frames]
         if d != "cpu":
             want = 2 + WARMUP_RUNS if name in ("mvdepthnet", "gpmvs") else 0
-            assert tps.launch_count - before == want
+            assert counters[tps.FORWARD_LAUNCHES] - before == want
     for got, want in zip(out[cuda_device], out["cpu"]):
         assert got.shape == (h, w) and np.isfinite(got).all()
         np.testing.assert_allclose(got, want, rtol=1e-5)
@@ -568,11 +571,11 @@ def test_baselines_graphed_equal_eager_on_the_card(cuda_device, name):
         est._readback = lambda d, real=type(est)._readback, out=raw[graphs]: (
             out.append(real(d)), out[-1])[1]
         est.predict(*frames[0])
-        before = tps.launch_count
+        before = counters[tps.FORWARD_LAUNCHES]
         for f in frames[1:]:
             est.predict(*f)
         want = len(frames) - 1 if name in ("mvdepthnet", "gpmvs") else 0
-        assert tps.launch_count - before == want
+        assert counters[tps.FORWARD_LAUNCHES] - before == want
     assert all(s.graph is not None for s in est.step_graphs.values())
     assert len(est.step_graphs) == cs.BASELINE_GRAPHS[name]
     for got, want in zip(raw[True], raw[False]):
@@ -630,7 +633,7 @@ def _train_runs(kind, device, modes, group=None):
     torch.backends.cudnn.deterministic = True
     try:
         runs, before, launches = cs.lockstep_train_runs(
-            torch, tps, base, kind, batches, flips, cs.lockstep_optimizer(torch, modules, 1e-4),
+            torch, base, kind, batches, flips, cs.lockstep_optimizer(torch, modules, 1e-4),
             modes, group)
     finally:
         torch.backends.cudnn.deterministic = False

@@ -41,6 +41,7 @@ from dvmvs_tpu_torch.baselines import deltas
 from dvmvs_tpu_torch.ops import dlt
 from dvmvs_tpu_torch.ops.sweep_measure import (DLT_CHECK_FLOPS, DLT_ROW_FLOPS, DLT_TAIL_FLOPS,
                                                dlt_bound, dlt_case)
+from dvmvs_tpu_torch.utils.profiling import counters
 
 POINT_TOL, HOM_TOL = 1e-4, 1e-4
 CASES = {
@@ -106,10 +107,10 @@ def test_wrapper_on_the_cpu_is_the_plain_svd():
     """On the CPU the wrapper is torch.linalg.svd's Vh, bit for bit, and
     counts no launch; it refuses what the kernel would not take."""
     A = deltas.dlt_system(*case_tensors("three_cameras"))
-    before = dlt.launch_count
+    before = counters[dlt.LAUNCHES]
     assert torch.equal(dlt.dlt_solve(A), torch.linalg.svd(A, full_matrices=False)[2])
     assert torch.equal(deltas.dlt_solve(A), dlt.dlt_solve_plain(A))
-    assert dlt.launch_count == before
+    assert counters[dlt.LAUNCHES] == before
     with pytest.raises(TypeError, match="float32"):
         dlt.dlt_solve(A.double())
     with pytest.raises(ValueError, match="contiguous"):
@@ -154,11 +155,11 @@ def test_kernel_matches_plain_on_the_card(cuda_device, name):
     A = deltas.dlt_system(*case_tensors(name, cuda_device)).contiguous()
     want = deltas.dlt_points(dlt.dlt_solve_plain(A)).cpu()
     exact = deltas.dlt_points(dlt.dlt_solve_plain(A.double())).float().cpu()
-    before = dlt.launch_count
+    before = counters[dlt.LAUNCHES]
     vh = dlt.dlt_solve(A)
     again = dlt.dlt_solve(A)
     torch.cuda.synchronize()
-    assert dlt.launch_count == before + 2 and torch.equal(vh, again)
+    assert counters[dlt.LAUNCHES] == before + 2 and torch.equal(vh, again)
     eye = torch.eye(4, device=cuda_device)
     assert torch.allclose(vh @ vh.transpose(-1, -2), eye.expand_as(vh), atol=1e-5)
     got = deltas.dlt_points(vh).cpu()

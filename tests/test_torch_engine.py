@@ -30,6 +30,7 @@ from dvmvs_tpu_torch.apps.run_testing_online import (
     predict_stream,
 )
 from dvmvs_tpu_torch.ops import plane_sweep
+from dvmvs_tpu_torch.utils.profiling import counters
 from tests.test_drivers_e2e import (  # noqa: F401 (fixtures)
     LOST_END,
     LOST_START,
@@ -65,9 +66,9 @@ def test_online_slice_matches_jax(png_scene, tiny_cfg, monkeypatch, kind):
     want, want_gts = jax_predict_scene(jengine, scene, tiny_cfg, evaluate=True)
 
     engine = InferenceEngine(kind, tiny_cfg, device="cpu", variables=numpy_variables(jengine))
-    before = plane_sweep.launch_count
+    before = counters[plane_sweep.FORWARD_LAUNCHES]
     got, gts = predict_scene(engine, scene, tiny_cfg, evaluate=True)
-    assert plane_sweep.launch_count == before  # the CPU takes the plain version
+    assert counters[plane_sweep.FORWARD_LAUNCHES] == before  # the CPU takes the plain version
 
     # keyframes before and after the tracking-lost reset
     assert len(got) == len(want) >= (LOST_START - 1) + (N_FRAMES - LOST_END - 1)

@@ -34,6 +34,7 @@ from dvmvs_tpu_torch.config import DepthConfig, TestConfig
 from dvmvs_tpu_torch.ops import plane_sweep
 from dvmvs_tpu_torch.ops.geometry import inverse_pose
 from dvmvs_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from dvmvs_tpu_torch.utils.profiling import counters
 
 H, W, V = 64, 96, 2
 RTOL = 1e-5
@@ -456,9 +457,9 @@ def test_replay_equals_eager_on_the_card(cuda_device, kind):
                                        graphs=False), inputs, graphed_cost_volumes=False)
     engine = InferenceEngine(kind, tiny_cfg(), device=cuda_device, seed=2)
     run_stream(engine, inputs)  # captures
-    before = plane_sweep.launch_count
+    before = counters[plane_sweep.FORWARD_LAUNCHES]
     got = run_stream(engine, inputs)
-    assert plane_sweep.launch_count - before == N_FRAMES - 2
+    assert counters[plane_sweep.FORWARD_LAUNCHES] - before == N_FRAMES - 2
     assert all(s.graph is not None and s.launches[0] in (0, 1)
                for s in engine.step_graphs.values())
     for a, b in zip(got[0] + got[1] + got[2], eager[0] + eager[1] + eager[2]):

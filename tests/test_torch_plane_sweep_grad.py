@@ -24,6 +24,7 @@ from dvmvs_tpu.ops.pallas.cost_volume_kernel import build_plane_matrices
 from dvmvs_tpu.ops.pallas.cost_volume_vjp import make_diff_plane_sweep, make_diff_plane_sweep_dyn
 from dvmvs_tpu_torch.ops import cost_volume as tcv
 from dvmvs_tpu_torch.ops import plane_sweep as tps
+from dvmvs_tpu_torch.utils.profiling import counters
 
 P = 16
 H = W = 64
@@ -79,7 +80,8 @@ def test_function_matches_jax_vjp(rng, euler, t, band, C):
     _grads_close(r.grad[0], dref_j)
     _grads_close(m.grad[0], dmeas_j)
     assert mats.grad is None  # the geometry gets no gradient
-    assert tps.launch_count == 0 and tps.backward_launch_count == 0  # CPU: plain versions
+    # CPU: plain versions
+    assert counters[tps.FORWARD_LAUNCHES] == 0 and counters[tps.BACKWARD_LAUNCHES] == 0
 
 
 def test_cost_volume_train_matches_jax_ladder_on_mixed_batch(rng):

@@ -14,7 +14,8 @@ profiling helpers of the port, against the JAX package.
     same frames read in the loop; an error in the worker reaches the caller
     (within a timeout) and the worker has ended, as it has after an early
     stop.
-  - device_trace writes a Chrome trace on the CPU.
+  - device_trace writes a Chrome trace on the CPU, with the port's own
+    spans (utils/profiling.py::span) beside the operators.
 """
 
 import concurrent.futures
@@ -205,11 +206,7 @@ def test_device_trace_writes_a_chrome_trace_on_the_cpu(tmp_path, png_scene, tiny
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any("conv" in n for n in names), sorted(names)[:20]
-    timer = profiling.StepTimer(n_skip=1)
-    for _ in range(3):
-        with timer:
-            engine.encode(image)
-    assert len(timer._timer.times) == 3 and min(timer._timer.times) > 0
+    assert "dvmvs.graph.run" in names  # the port's own span, beside the operators
 
 
 def test_fusionnet_validation_writes_the_depth_panels(tmp_path):
