@@ -33,7 +33,11 @@ to running the body eagerly.
 A body runs, warms up and is captured inside
 ``utils/precision.py::ieee_float32``: a replay runs the convolution kernels
 chosen while the graph was captured, so the graph computes in IEEE float32
-whatever the process's TF32 flags are at the replay.
+whatever the process's TF32 flags are at the replay. The same context turns
+on cuDNN's algorithm search: the warm-up runs time each convolution shape's
+candidates, and the capture takes the fastest from torch's cache. A capture
+without a warm-up (``warmup=0``) relies on an earlier warm-up of the same
+shapes in the process: a shape first seen inside a capture makes it raise.
 
 The kernel wrappers (the plane sweep's forward and backward, the DLT
 solve) count their launches in Python (``utils/profiling.py::counters``),
@@ -41,7 +45,8 @@ which a replay does not run: the count a capture records is added back at
 every replay, and the capture's own (recorded, not launched) counts are
 taken away. A run is the span ``dvmvs.graph.run`` and a capture, warm-up
 included, ``dvmvs.graph.capture``; the counters ``graph.builds`` and
-``graph.captures`` count the graphs made and captured.
+``graph.captures`` count the graphs made and captured, and
+``graph.tuned_captures`` the captures made with the algorithm search on.
 """
 
 from __future__ import annotations
@@ -155,6 +160,8 @@ class StepGraph:
 
     def _capture(self):
         counters.add("graph.captures")
+        if torch.backends.cudnn.benchmark:
+            counters.add("graph.tuned_captures")
         current = torch.cuda.current_stream(self.device)
         if self.warmup:
             # outside autograd: a clone of a parameter would keep its

@@ -1,4 +1,5 @@
-"""The port's arithmetic mode: convolutions and matmuls in IEEE float32.
+"""The port's arithmetic mode: convolutions and matmuls in IEEE float32,
+each convolution on the cuDNN algorithm timed fastest for its shape.
 
 The reference every check holds the port to is the JAX package on the CPU,
 where XLA computes convolutions and matmuls in IEEE float32. torch's
@@ -20,6 +21,22 @@ port reads the mode through ``current`` and ``describe`` only.
 cuDNN off unless ``enabled=True`` is passed.) The flags are process-global,
 not thread-local: enter the context on the thread that launches the step;
 autograd's backward threads read the same flags.
+
+The same context picks each convolution's cuDNN algorithm by timing:
+within it ``torch.backends.cudnn.benchmark`` is True, so the first
+convolution of each shape times cuDNN's candidates on the card and torch
+caches the fastest for that shape (in the process; torch's cuDNN v8 path
+keeps one cache per thread, so autograd's backward thread has its own)
+instead of taking cuDNN's heuristic guess, which runs some float32 shapes
+on FFT and legacy (``ALGO_0``) kernels that lose to implicit GEMM when
+timed. The arithmetic stays IEEE float32; only the algorithm changes. The
+search times the first ``SEARCH_CANDIDATES`` of cuDNN's ranked candidates
+(``torch.backends.cudnn.benchmark_limit``). It runs at a shape's first
+call, which on the graph path is ``StepGraph``'s warm-up before the
+capture, so a capture and its replays run the measured algorithm; a shape
+first seen inside a capture would time its candidates there, which a
+capture refuses: the capture raises. ``unpinned()`` leaves the search on,
+so that it differs from the port by precision alone.
 """
 
 from __future__ import annotations
@@ -30,6 +47,13 @@ import torch
 
 # False only inside ``unpinned()``
 _pinning = True
+
+# candidates the search times for each shape. On an H100 (700 W), medians
+# of 3 runs, the fusionnet training step (B=4, S=8, 256x256) took 169.1 ms at
+# 3, 168.9 at 4 and 167.4 at 6 (198.0 on cuDNN's heuristic), and the search
+# added 2.6, 2.6 and 3.7 s to its warm-up and capture, whose set-up is about
+# 30 s; at torch's default of 10 it added 9.8 s
+SEARCH_CANDIDATES = 4
 
 
 def _flags():
@@ -46,18 +70,20 @@ def current() -> dict:
 @contextlib.contextmanager
 def ieee_float32():
     """Within the block (or the decorated function), convolutions and
-    matmuls on the card compute in IEEE float32; the caller's flags are
-    restored on exit, also when the block raises."""
-    if not _pinning:
-        yield
-        return
-    flags = _flags()
+    matmuls on the card compute in IEEE float32, and each convolution runs
+    the cuDNN algorithm timed fastest for its shape (module doc); the
+    caller's flags are restored on exit, also when the block raises."""
+    cudnn = torch.backends.cudnn
+    flags = _flags() if _pinning else {}
     saved = [flag.fp32_precision for flag in flags.values()]
+    saved_search = cudnn.benchmark, cudnn.benchmark_limit
     for flag in flags.values():
         flag.fp32_precision = "ieee"
+    cudnn.benchmark, cudnn.benchmark_limit = True, SEARCH_CANDIDATES
     try:
         yield
     finally:
+        cudnn.benchmark, cudnn.benchmark_limit = saved_search
         for flag, value in zip(flags.values(), saved):
             flag.fp32_precision = value
 
@@ -65,9 +91,10 @@ def ieee_float32():
 @contextlib.contextmanager
 def unpinned():
     """For measurements and planted faults only: within the block
-    ``ieee_float32`` leaves the flags as they are, so the steps compute in
-    the process's own mode (torch's TF32 convolutions by default), as they
-    did before the port pinned its mode."""
+    ``ieee_float32`` leaves the precision flags as they are, so the steps
+    compute in the process's own mode (torch's TF32 convolutions by
+    default), as they did before the port pinned its mode; the algorithm
+    search stays on."""
     global _pinning
     saved, _pinning = _pinning, False
     try:
@@ -80,5 +107,6 @@ def describe() -> str:
     """One line for a run's header: the mode the steps run in, and the
     process's own flags, which the steps do not use."""
     defaults = ", ".join(f"{name} {value}" for name, value in current().items())
-    return (f"arithmetic: IEEE float32 convolutions and matmuls in every step "
+    return (f"arithmetic: IEEE float32 convolutions and matmuls in every step, each "
+            f"convolution's cuDNN algorithm timed at its shape's first call "
             f"(process flags, unused by the steps: {defaults})")

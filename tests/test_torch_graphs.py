@@ -470,6 +470,38 @@ def test_replay_equals_eager_on_the_card(cuda_device, kind):
 
 
 @pytest.mark.cuda
+def test_every_capture_is_tuned_on_the_card(cuda_device, monkeypatch):
+    """Each capture runs inside the algorithm search (``graph.tuned_captures``
+    counts every ``graph.captures``), and the caller's flag is back after."""
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    before = counters.snapshot()
+    run_stream(InferenceEngine("fusionnet", tiny_cfg(), device=cuda_device, seed=2),
+               stream_inputs())
+    moved = counters.since(before)
+    assert moved["graph.captures"] >= 2
+    assert moved.get("graph.tuned_captures") == moved["graph.captures"]
+    assert torch.backends.cudnn.benchmark is False
+
+
+@pytest.mark.cuda
+def test_a_capture_without_warm_up_takes_the_searched_algorithms_on_the_card(cuda_device):
+    """A second engine whose captures skip the warm-up (``warmup=0``) for
+    shapes an earlier engine warmed up captures from torch's algorithm cache
+    without error, and replays the first engine's results bit for bit."""
+    inputs = stream_inputs()
+    first = InferenceEngine("fusionnet", tiny_cfg(), device=cuda_device, seed=2)
+    run_stream(first, inputs)  # warms up and captures
+    want = run_stream(first, inputs)
+    second = InferenceEngine("fusionnet", tiny_cfg(), device=cuda_device, seed=2)
+    second._warmed = set(first._warmed)
+    got = run_stream(second, inputs)
+    assert second.step_graphs and all(s.warmup == 0 and s.graph is not None
+                                      for s in second.step_graphs.values())
+    for a, b in zip(got[0] + got[1] + got[2], want[0] + want[1] + want[2]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
 def test_bulk_chunks_replay_equal_eager_on_the_card(cuda_device):
     images, K, xs = bulk_inputs()
     for kind in ("pairnet", "fusionnet"):

@@ -23,8 +23,13 @@ each, at tiny sizes:
     cpu`` (``accuracy_proxy`` with its child processes run in this process,
     so the recorder sees them); each driver's header must name the mode.
 
+The same context turns cuDNN's algorithm search on
+(``torch.backends.cudnn.benchmark``), with the caller's search off: the
+recorder reads that flag too, at every convolution, forward and backward.
+
 Planted fault: with the pin a no-op (``precision.unpinned``), the recorder
-sees the caller's TF32 at the convolutions and the check fails.
+sees the caller's TF32 at the convolutions and the check fails; the search
+stays on.
 """
 
 import importlib
@@ -38,7 +43,7 @@ import torch.nn.functional as F
 
 from dvmvs_tpu_torch.apps import accuracy_proxy, dryrun_multichip, make_synth_scenes
 from dvmvs_tpu_torch.apps import run_testing, run_testing_baseline, run_testing_online
-from dvmvs_tpu_torch.apps import run_training, simulate_keyframe_buffer
+from dvmvs_tpu_torch.apps import graphs, run_training, simulate_keyframe_buffer
 from dvmvs_tpu_torch.apps.engine import InferenceEngine
 from dvmvs_tpu_torch.baselines import deltas, dpsnet, gpmvs, mvdepthnet
 from dvmvs_tpu_torch.baselines.registry import BASELINE_REGISTRY
@@ -79,23 +84,28 @@ def _set_flags(values):
 
 @pytest.fixture
 def tf32_caller():
-    """The process in TF32, as torch leaves it on the card; restored after."""
-    saved = _flags()
+    """The process in TF32 with cuDNN's algorithm search off, as torch leaves
+    it on the card; restored after."""
+    saved, saved_benchmark = _flags(), torch.backends.cudnn.benchmark
     _set_flags(TF32)
+    torch.backends.cudnn.benchmark = False
     yield
     _set_flags(saved)
+    torch.backends.cudnn.benchmark = saved_benchmark
 
 
 class ConvRecorder:
-    """Within the block, ``calls`` gets (where, conv flag, matmul flag) at
-    every convolution: forward (module or functional) and backward."""
+    """Within the block, ``calls`` gets (where, conv flag, matmul flag,
+    algorithm search on) at every convolution: forward (module or
+    functional) and backward."""
 
     def __init__(self):
         self.calls = []
 
     def _record(self, where):
         flags = _flags()
-        self.calls.append((where, flags["cudnn.conv"], flags["cuda.matmul"]))
+        self.calls.append((where, flags["cudnn.conv"], flags["cuda.matmul"],
+                           torch.backends.cudnn.benchmark))
 
     def __enter__(self):
         def pre(module, _):
@@ -304,8 +314,16 @@ def recorded(case, request, tmp_path, monkeypatch):
 def assert_pinned(calls):
     """Every convolution saw IEEE convolutions and matmuls."""
     assert calls, "no convolution was recorded"
-    wrong = [c for c in calls if c[1:] != ("ieee", "ieee")]
+    wrong = [c for c in calls if c[1:3] != ("ieee", "ieee")]
     assert not wrong, f"{len(wrong)} of {len(calls)} convolutions not pinned, e.g. {wrong[:3]}"
+
+
+def assert_searched(calls):
+    """Every convolution saw cuDNN's algorithm search on."""
+    assert calls, "no convolution was recorded"
+    wrong = [c for c in calls if c[3] is not True]
+    assert not wrong, f"{len(wrong)} of {len(calls)} convolutions without the search, " \
+                      f"e.g. {wrong[:3]}"
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -313,9 +331,11 @@ def test_every_convolution_runs_in_ieee_float32(case, tf32_caller, request, tmp_
                                                 monkeypatch, capsys):
     calls = recorded(case, request, tmp_path, monkeypatch)
     assert_pinned(calls)
+    assert_searched(calls)
     if "train_step" in case:
         assert any(where.startswith("backward") for where, *_ in calls)
     assert _flags() == TF32, "the caller's mode was not restored"
+    assert torch.backends.cudnn.benchmark is False, "the caller's search was not restored"
     if case.startswith("driver-"):
         out = capsys.readouterr().out
         assert HEADER in out and "cudnn.conv tf32" in out, out[-2000:]
@@ -328,12 +348,13 @@ def test_every_convolution_runs_in_ieee_float32(case, tf32_caller, request, tmp_
 def test_planted_fault_the_pin_bypassed_shows_tf32(case, tf32_caller, request, tmp_path,
                                                    monkeypatch):
     """With the pin a no-op the recorder sees the caller's TF32, and the
-    check above fails."""
+    check above fails; the algorithm search stays on."""
     with precision.unpinned():
         calls = recorded(case, request, tmp_path, monkeypatch)
-    assert calls and all(c[1:] == ("tf32", "tf32") for c in calls)
+    assert calls and all(c[1:3] == ("tf32", "tf32") for c in calls)
     with pytest.raises(AssertionError, match="not pinned"):
         assert_pinned(calls)
+    assert_searched(calls)
 
 
 def test_the_context_restores_the_callers_mode_on_an_error_and_nests(tf32_caller):
@@ -346,3 +367,51 @@ def test_the_context_restores_the_callers_mode_on_an_error_and_nests(tf32_caller
             raise KeyError("inside the step")
     assert _flags() == TF32
     assert "cudnn.conv tf32" in precision.describe()
+
+
+@pytest.mark.parametrize("caller", [False, True], ids=["caller_off", "caller_on"])
+def test_the_context_turns_the_search_on_and_restores_the_callers(caller):
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = caller
+    limit = torch.backends.cudnn.benchmark_limit
+    try:
+        with precision.ieee_float32():
+            assert torch.backends.cudnn.benchmark is True
+            assert torch.backends.cudnn.benchmark_limit == precision.SEARCH_CANDIDATES
+            with precision.ieee_float32():
+                assert torch.backends.cudnn.benchmark is True
+            assert torch.backends.cudnn.benchmark is True
+            assert torch.backends.cudnn.benchmark_limit == precision.SEARCH_CANDIDATES
+        assert torch.backends.cudnn.benchmark is caller
+        assert torch.backends.cudnn.benchmark_limit == limit
+        with pytest.raises(KeyError):
+            with precision.ieee_float32():
+                raise KeyError("inside the step")
+        assert torch.backends.cudnn.benchmark is caller
+        assert torch.backends.cudnn.benchmark_limit == limit
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
+def test_unpinned_keeps_the_search_on_and_the_callers_precision(tf32_caller):
+    with precision.unpinned(), precision.ieee_float32():
+        assert torch.backends.cudnn.benchmark is True
+        assert _flags() == TF32
+    assert torch.backends.cudnn.benchmark is False and _flags() == TF32
+
+
+def test_a_cpu_step_graph_runs_its_body_with_the_search_on(tf32_caller):
+    """``StepGraph.run`` on the CPU (the card's warm-up and capture run
+    inside the same context) calls its body with the search on."""
+    seen = []
+
+    def body(x):
+        seen.append((torch.backends.cudnn.benchmark, _flags()["cudnn.conv"]))
+        return x + 1.0
+
+    step = graphs.StepGraph("toy", body, {"x": torch.zeros(2)})
+    step.run()
+    step.run()
+    assert seen == [(True, "ieee")] * 2
+    assert torch.backends.cudnn.benchmark is False
+
