@@ -4,7 +4,11 @@ dvmvs/baselines/*/run-testing.py, one shared loop instead of four clones).
 
 Per index line the reference and measurement frames are read, preprocessed
 for the estimator (its size and normalisation, no crop), and predicted;
-``TRACKING LOST`` resets the estimator. Predictions and the 8 error metrics
+``TRACKING LOST`` resets the estimator. The frames come from an assets
+object (``BaselineAssets``, the scene folder's PNGs, by default; or frames
+held in memory); under ``torch.profiler`` each line's frames are the span
+``dvmvs.baseline.frames``, beside the estimators' own spans
+(``baselines/steps.py``). Predictions and the 8 error metrics
 are saved as npz under the JAX package's system name.
 
 Run on the card (the default; ``--device cpu`` asks for the CPU):
@@ -35,38 +39,70 @@ from dvmvs_tpu_torch.data.preprocess import PreprocessImage
 from dvmvs_tpu_torch.utils.baseline_weights import BASELINE_STATE_DICTS
 from dvmvs_tpu_torch.utils.checkpoint import is_jax_checkpoint, read_jax_variables
 from dvmvs_tpu_torch.utils.precision import describe
+from dvmvs_tpu_torch.utils.profiling import span
 from dvmvs_tpu_torch.utils.results import InferenceTimer, save_results
+
+
+class BaselineAssets:
+    """A scene folder's frames as an estimator takes them: ``image(name)``
+    decodes the PNG and preprocesses it to the estimator's size and
+    normalisation (no crop), on every call; ``pose(name)``, ``updated_K``,
+    ``depth_filenames`` (None without ``evaluate`` or a depth folder) and
+    ``gt_depth(name)`` at the estimator's size, as
+    ``apps/run_testing.py::SceneAssets`` gives them to the engine."""
+
+    def __init__(self, estimator, scene_folder: str, evaluate: bool = True):
+        K = np.loadtxt(os.path.join(scene_folder, "K.txt")).astype(np.float32)
+        self.poses = np.fromfile(os.path.join(scene_folder, "poses.txt"), dtype=float,
+                                 sep="\n ").reshape(-1, 4, 4)
+        self.images_dir = os.path.join(scene_folder, "images")
+        image_filenames = sorted(f for f in os.listdir(self.images_dir) if f.endswith(".png"))
+        self.frame_index = {f: i for i, f in enumerate(image_filenames)}
+        self.depth_dir = os.path.join(scene_folder, "depth")
+        self.depth_filenames = (
+            sorted(f for f in os.listdir(self.depth_dir) if f.endswith(".png"))
+            if evaluate and os.path.isdir(self.depth_dir) else None)
+        first = load_image(os.path.join(self.images_dir, image_filenames[0]))
+        self.preprocessor = PreprocessImage(
+            K=K, old_width=first.shape[1], old_height=first.shape[0],
+            new_width=estimator.image_width, new_height=estimator.image_height,
+            distortion_crop=0, perform_crop=False)
+        self.updated_K = self.preprocessor.get_updated_intrinsics().astype(np.float32)
+        self.normalisation = (estimator.scale_rgb, list(estimator.mean_rgb),
+                              list(estimator.std_rgb))
+
+    def image(self, name: str) -> np.ndarray:
+        return self.preprocessor.apply_rgb(load_image(os.path.join(self.images_dir, name)),
+                                           *self.normalisation)
+
+    def pose(self, name: str) -> np.ndarray:
+        return self.poses[self.frame_index[name]]
+
+    def gt_depth(self, name: str) -> np.ndarray:
+        d = load_depth_png(os.path.join(self.depth_dir,
+                                        self.depth_filenames[self.frame_index[name]]))
+        return self.preprocessor.apply_depth(d)
 
 
 def evaluate_scene_baseline(estimator, scene_folder: str, index_file: str,
                             evaluate: bool = True, max_frames: Optional[int] = None,
-                            timer: Optional[InferenceTimer] = None):
+                            timer: Optional[InferenceTimer] = None, assets=None):
     """Predict every keyframe line of ``index_file`` with ``estimator``.
     Returns (predictions, ground-truth depths at the estimator's size, or
-    None). ``timer`` (default a fresh one) times each ``predict``."""
+    None). ``timer`` (default a fresh one) times each ``predict``.
+    ``assets``: the scene's frames already at the estimator's size and
+    normalisation (``image``, ``pose``, ``updated_K``, ``depth_filenames``
+    and, where that is not None, ``gt_depth``), so that nothing is read
+    from disk; by default ``BaselineAssets`` of ``scene_folder``."""
     with open(index_file) as f:
         lines = [line for line in f.read().splitlines() if line]
-
-    K = np.loadtxt(os.path.join(scene_folder, "K.txt")).astype(np.float32)
-    poses = np.fromfile(os.path.join(scene_folder, "poses.txt"), dtype=float,
-                        sep="\n ").reshape(-1, 4, 4)
-    images_dir = os.path.join(scene_folder, "images")
-    image_filenames = sorted(f for f in os.listdir(images_dir) if f.endswith(".png"))
-    name_to_index = {f: i for i, f in enumerate(image_filenames)}
-    depth_dir = os.path.join(scene_folder, "depth")
-    depth_filenames = (
-        sorted(f for f in os.listdir(depth_dir) if f.endswith(".png"))
-        if evaluate and os.path.isdir(depth_dir) else None)
+    if assets is None:
+        assets = BaselineAssets(estimator, scene_folder, evaluate)
 
     predictions = []
-    reference_depths = [] if depth_filenames is not None else None
-    preprocessor = None
+    reference_depths = [] if assets.depth_filenames is not None else None
     timer = InferenceTimer() if timer is None else timer
     estimator.reset()
-
-    def preprocess(raw):
-        return preprocessor.apply_rgb(raw, estimator.scale_rgb, list(estimator.mean_rgb),
-                                      list(estimator.std_rgb))
 
     for line in lines:
         if max_frames is not None and len(predictions) >= max_frames:
@@ -75,27 +111,16 @@ def evaluate_scene_baseline(estimator, scene_folder: str, index_file: str,
             estimator.reset()
             continue
         ref_name, *meas_names = line.split(" ")
-        ref_index = name_to_index[ref_name]
-
-        raw = load_image(os.path.join(images_dir, ref_name))
-        if preprocessor is None:
-            preprocessor = PreprocessImage(
-                K=K, old_width=raw.shape[1], old_height=raw.shape[0],
-                new_width=estimator.image_width, new_height=estimator.image_height,
-                distortion_crop=0, perform_crop=False)
-        ref_image = preprocess(raw)
-        updated_K = preprocessor.get_updated_intrinsics().astype(np.float32)
-
-        if reference_depths is not None:
-            d = load_depth_png(os.path.join(depth_dir, depth_filenames[ref_index]))
-            reference_depths.append(preprocessor.apply_depth(d))
-
-        meas_images = [preprocess(load_image(os.path.join(images_dir, m))) for m in meas_names]
-        meas_poses = [poses[name_to_index[m]] for m in meas_names]
+        with span("dvmvs.baseline.frames"):
+            ref_image = assets.image(ref_name)
+            if reference_depths is not None:
+                reference_depths.append(assets.gt_depth(ref_name))
+            meas_images = [assets.image(m) for m in meas_names]
+            meas_poses = [assets.pose(m) for m in meas_names]
 
         timer.record_start_time()
-        depth = estimator.predict(ref_image, meas_images, poses[ref_index], meas_poses,
-                                  updated_K)
+        depth = estimator.predict(ref_image, meas_images, assets.pose(ref_name), meas_poses,
+                                  assets.updated_K)
         timer.record_end_time_and_elapsed_time()
         predictions.append(depth)
 

@@ -609,10 +609,17 @@ class Deltas(GraphedEstimator):
         seeded with ``seed``, or ``state_dict`` (the model's keys).
         ``graphs``: ``predict`` as one CUDA graph replay on the card
         (detector and matcher up to the DLT systems, their solve by the
-        ``dlt_solve`` kernel, the densifier); else eagerly."""
+        ``dlt_solve`` kernel, the densifier); else eagerly.
+
+        After a ``predict``, ``outputs`` holds its raw depth (1, H, W)
+        before the clip, keypoints (1, Kn, 2) and triangulated points (1,
+        Kn, 3) on the device: on the graph path the step's output buffers,
+        which the next ``predict`` rewrites, so a caller copies what it
+        keeps (a device copy, no host sync)."""
         self.V = n_measurement_frames
         self.model = seeded_model(DeltasModel(), seed, device, state_dict)
         self.device = next(self.model.parameters()).device
+        self.outputs: Optional[dict] = None
         self._init_steps(graphs)
 
     def inputs(self, ref_image, meas_images, ref_pose, meas_poses, K):
@@ -622,18 +629,21 @@ class Deltas(GraphedEstimator):
         return relative_views(**{k: self._fresh(v) for k, v in host.items()})
 
     def _body(self, **inputs):
-        """The whole forward: ``front``, the DLT solve, ``back`` -> depth."""
+        """The whole forward: ``front``, the DLT solve, ``back`` -> the raw
+        depth, the keypoints and their points (``outputs``)."""
         height, width = inputs["ref"].shape[:2]
         front = self.model.front(*relative_views(**inputs))
-        return self.model.back(dlt_solve(front["system"]), front["keypoints"],
-                               front["range_mask"], front["image_skips"], height, width)["depth"]
+        back = self.model.back(dlt_solve(front["system"]), front["keypoints"],
+                               front["range_mask"], front["image_skips"], height, width)
+        return {"depth": back["depth"], "keypoints": front["keypoints"],
+                "points3d": back["points3d"]}
 
     @torch.inference_mode()
     def predict(self, ref_image, meas_images: List[np.ndarray], ref_pose, meas_poses,
                 K) -> np.ndarray:
         inputs = relative_inputs(self.V, ref_image, meas_images, ref_pose, meas_poses, K)
-        depth = self._step("forward", self._body, inputs)
+        self.outputs = self._step("forward", self._body, inputs)
         # the reference feeds the raw output to the metrics; the consumers
         # here (TSDF, inverse-depth metrics) need positive depth, so clamp to
         # the model's range
-        return np.clip(self._readback(depth), MIN_DEPTH, MAX_DEPTH)
+        return np.clip(self._readback(self.outputs["depth"]), MIN_DEPTH, MAX_DEPTH)

@@ -159,7 +159,7 @@ class GPMVS(MVDepthNet):
         if self.prev_pose is None:
             self.prev_pose = meas_poses[-1]
         dt, _, _ = pose_distance_np(ref_pose, self.prev_pose)
-        latent = conv5.to("cpu", copy=True).numpy().ravel()
+        latent = self._to_host(conv5).ravel()
         with single_threaded_blas():
             z = self.kalman.step(latent, dt)
         self.prev_pose = ref_pose

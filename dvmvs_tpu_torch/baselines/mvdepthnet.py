@@ -27,6 +27,7 @@ from dvmvs_tpu_torch.baselines.registry import pad_views, register_baseline
 from dvmvs_tpu_torch.baselines.steps import GraphedEstimator
 from dvmvs_tpu_torch.models.layers import seeded_model
 from dvmvs_tpu_torch.ops.cost_volume import cost_volume_fused
+from dvmvs_tpu_torch.utils.profiling import span
 
 MIN_DEPTH, MAX_DEPTH = 0.5, 50.0
 
@@ -63,9 +64,10 @@ def host_views(n_views: int, ref_image, meas_images, ref_pose, meas_poses, K) ->
     """Host inputs of the U-Nets: the frame (H, W, 3), the measurement
     frames (V, H, W, 3) padded with view 0, the poses (4, 4) and (V, 4, 4),
     K (3, 3) and the view mask (V,)."""
-    images, poses, mask = pad_views(n_views, meas_images, meas_poses)
-    return {"image": np.asarray(ref_image), "meas": images, "pose": np.asarray(ref_pose),
-            "meas_poses": poses, "K": np.asarray(K), "mask": mask[0]}
+    with span("dvmvs.baseline.inputs"):
+        images, poses, mask = pad_views(n_views, meas_images, meas_poses)
+        return {"image": np.asarray(ref_image), "meas": images, "pose": np.asarray(ref_pose),
+                "meas_poses": poses, "K": np.asarray(K), "mask": mask[0]}
 
 
 def device_views(image, meas, pose, meas_poses, K, mask):

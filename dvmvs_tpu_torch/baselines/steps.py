@@ -26,6 +26,17 @@ them. What leaves for the
 host is copied (``_readback``): on the CPU ``.cpu()`` of a buffer would
 return the buffer itself. The buffers are made inside ``predict``'s
 inference mode and written only there.
+
+Under ``torch.profiler`` the host work of every baseline shows as spans
+(``utils/profiling.py::span``), none inside a step body: ``dvmvs.baseline.
+inputs`` (``relative_inputs``, and the U-Nets' ``host_views``: padding the
+views, the relative poses), ``dvmvs.baseline.fill`` (the graph lookup and
+the copy into static buffers), ``dvmvs.graph.run`` and ``dvmvs.baseline.
+readback`` (a copy to the host: the depth, and GP-MVS's latent before it);
+``apps/run_testing_baseline.py`` adds ``dvmvs.baseline.frames``. The
+counters ``baseline.predicts``, ``baseline.h2d_bytes`` and
+``baseline.d2h_bytes`` count the depths read back and the bytes copied in
+from host arrays and out to the host.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ import torch
 from dvmvs_tpu_torch.apps.graphs import StepGraph, fill, leaves
 from dvmvs_tpu_torch.baselines.registry import DepthEstimator, pad_views
 from dvmvs_tpu_torch.utils.precision import ieee_float32
+from dvmvs_tpu_torch.utils.profiling import counters, span
 
 
 def relative_inputs(n_views: int, ref_image, meas_images, ref_pose, meas_poses, K,
@@ -46,10 +58,11 @@ def relative_inputs(n_views: int, ref_image, meas_images, ref_pose, meas_poses, 
     ``rows=3``, DELTAS: all 4): the frame (H, W, 3), the measurement frames
     (V, H, W, 3) padded with view 0, measurement <- reference poses (V, rows,
     4), K (3, 3) and the view mask (1, V)."""
-    images, poses, mask = pad_views(n_views, meas_images, meas_poses)
-    rel = np.stack([(np.linalg.inv(p) @ ref_pose)[:rows] for p in poses])
-    return {"ref": np.asarray(ref_image), "meas": images, "rel": rel, "K": np.asarray(K),
-            "mask": mask}
+    with span("dvmvs.baseline.inputs"):
+        images, poses, mask = pad_views(n_views, meas_images, meas_poses)
+        rel = np.stack([(np.linalg.inv(p) @ ref_pose)[:rows] for p in poses])
+        return {"ref": np.asarray(ref_image), "meas": images, "rel": rel, "K": np.asarray(K),
+                "mask": mask}
 
 
 def relative_views(ref, meas, rel, K, mask):
@@ -69,12 +82,19 @@ class GraphedEstimator(DepthEstimator):
         self.graphs = graphs
         self.step_graphs: Dict[tuple, StepGraph] = {}
 
+    @staticmethod
+    def _host_tensor(value) -> torch.Tensor:
+        """A host array as a float32 tensor, its bytes counted as copied in."""
+        t = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+        counters.add("baseline.h2d_bytes", t.nbytes)
+        return t
+
     def _fresh(self, value) -> torch.Tensor:
         """An input as the eager path takes it: a host array uploaded as
         float32, a device tensor as given."""
         if isinstance(value, torch.Tensor):
             return value
-        return torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32)).to(self.device)
+        return self._host_tensor(value).to(self.device)
 
     def _buffer(self, value) -> torch.Tensor:
         dtype = value.dtype if isinstance(value, torch.Tensor) else torch.float32
@@ -84,7 +104,7 @@ class GraphedEstimator(DepthEstimator):
         """Copy an input into its static buffer (a host array through pinned
         memory, without a host sync)."""
         if not isinstance(value, torch.Tensor):
-            value = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+            value = self._host_tensor(value)
         fill(buffer, value)
 
     def _step(self, name: str, body, inputs: dict, fixed: Optional[dict] = None):
@@ -94,19 +114,30 @@ class GraphedEstimator(DepthEstimator):
         if not self.graphs:
             with ieee_float32():
                 return body(**{k: self._fresh(v) for k, v in inputs.items()}, **fixed)
-        key = (name, tuple((k, tuple(v.shape)) for k, v in inputs.items()),
-               tuple(t.data_ptr() for t in leaves(fixed)))
-        step = self.step_graphs.get(key)
-        if step is None:
-            cls = type(self).__name__
-            step = self.step_graphs[key] = StepGraph(
-                name, body, {**{k: self._buffer(v) for k, v in inputs.items()}, **fixed},
-                owner=f"the {cls}", eager=f"{cls}(..., graphs=False)")
-        for k, v in inputs.items():
-            self._fill(step.args[k], v)
+        with span("dvmvs.baseline.fill"):
+            key = (name, tuple((k, tuple(v.shape)) for k, v in inputs.items()),
+                   tuple(t.data_ptr() for t in leaves(fixed)))
+            step = self.step_graphs.get(key)
+            if step is None:
+                cls = type(self).__name__
+                step = self.step_graphs[key] = StepGraph(
+                    name, body, {**{k: self._buffer(v) for k, v in inputs.items()}, **fixed},
+                    owner=f"the {cls}", eager=f"{cls}(..., graphs=False)")
+            for k, v in inputs.items():
+                self._fill(step.args[k], v)
         return step.run()
 
     @staticmethod
+    def _to_host(t: torch.Tensor) -> np.ndarray:
+        """A host copy of a device tensor (a copy on the CPU too), the bytes
+        counted as read back."""
+        with span("dvmvs.baseline.readback"):
+            out = t.to("cpu", copy=True).numpy()
+        counters.add("baseline.d2h_bytes", out.nbytes)
+        return out
+
+    @staticmethod
     def _readback(depth: torch.Tensor) -> np.ndarray:
-        """The host copy of a (1, H, W) depth (a copy on the CPU too)."""
-        return depth[0].to("cpu", copy=True).numpy()
+        """The host copy of a (1, H, W) depth, once a ``predict``."""
+        counters.add("baseline.predicts")
+        return GraphedEstimator._to_host(depth[0])

@@ -5,11 +5,13 @@ tests/test_torch_graphs.py's tiny size (96x64 frames, 64 planes, V=2).
     ``dvmvs.engine.inputs``, ``dvmvs.engine.fill``, ``dvmvs.graph.run`` and
     ``dvmvs.engine.readback`` in that order, inside the caller's range and
     on its clock; ``predict_stream`` adds one ``dvmvs.stream.buffer`` a
-    frame; ``evaluate_scene_batched`` its four ``dvmvs.bulk.*`` spans.
+    frame; ``evaluate_scene_batched`` its four ``dvmvs.bulk.*`` spans; a
+    graphed baseline's ``predict`` through ``evaluate_scene_baseline`` the
+    four ``dvmvs.baseline.*`` spans, none inside a step body or a capture.
   - With no profiler running a span makes no ``record_function``.
   - The counters: the scan schedule's slots and padding, a second bank's
     allocation, graph builds and evictions, the launch counts a replay adds
-    back, and (on the card) a capture.
+    back, a baseline ``predict`` and its bytes, and (on the card) a capture.
 
 The test marked ``cuda`` skips here and runs on the card with ``python -m
 pytest --noconftest -q tests/test_torch_tracing.py -m cuda``.
@@ -22,9 +24,11 @@ import pytest
 import torch
 
 from dvmvs_tpu_torch.apps import run_testing as rt
+from dvmvs_tpu_torch.apps import run_testing_baseline as rtb
 from dvmvs_tpu_torch.apps.engine import InferenceEngine
 from dvmvs_tpu_torch.apps.graphs import LAUNCHES, StepGraph
 from dvmvs_tpu_torch.apps.run_testing_online import predict_stream
+from dvmvs_tpu_torch.baselines.deltas import Deltas
 from dvmvs_tpu_torch.config import DepthConfig, TestConfig
 from dvmvs_tpu_torch.utils import profiling
 from dvmvs_tpu_torch.utils.profiling import counters, span
@@ -35,6 +39,12 @@ ENGINE_SPANS = ["dvmvs.engine.inputs", "dvmvs.engine.fill", "dvmvs.graph.run",
 BULK_SPANS = {"dvmvs.bulk.index", "dvmvs.bulk.frames", "dvmvs.bulk.schedule",
               "dvmvs.bulk.readback"}
 B, CHUNK = 2, 2
+BASELINE_SPANS = ["dvmvs.baseline.frames", "dvmvs.baseline.inputs", "dvmvs.baseline.fill",
+                  "dvmvs.graph.run", "dvmvs.baseline.readback"]
+# one DELTAS predict at H x W with V views: the frames, V relative poses
+# (4x4), K and the view mask in; the depth out
+BASELINE_H2D = 4 * ((1 + V) * H * W * 3 + V * 16 + 9 + V)
+BASELINE_D2H = 4 * H * W
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -217,6 +227,37 @@ def test_replays_add_the_recorded_launches_back():
     assert profiling.describe_counts({"b": 2, "a": 1}) == "counters: a 1, b 2"
 
 
+class SmallDeltas(Deltas):
+    image_width, image_height = W, H
+
+
+def baseline_line(estimator, tmp_path):
+    """``evaluate_scene_baseline`` over one keyframe line, frames from
+    memory."""
+    frames, poses, K = stream_inputs()
+    path = tmp_path / "keyframe+test+scene+nmeas+2"
+    path.write_text("f2 f1 f0\n")
+    return rtb.evaluate_scene_baseline(estimator, "", str(path), evaluate=False,
+                                       assets=Assets(frames, poses, K))
+
+
+def test_a_graphed_baseline_predict_spans_its_host_work_and_counts_its_bytes(tmp_path):
+    """DELTAS on static buffers: the line's frames, then the predict's
+    inputs, fill, graph run and readback, one after another inside the
+    caller; none inside the graph run (the step body, which a capture
+    records); one predict counted with its bytes in and out."""
+    est = SmallDeltas(device="cpu", seed=1, graphs=True)
+    before = counters.snapshot()
+    caller, spans = ranges(lambda: baseline_line(est, tmp_path), tmp_path)
+    moved = counters.since(before)
+    assert [s[0] for s in spans] == BASELINE_SPANS
+    assert all(caller[1] <= s[1] <= s[2] <= caller[2] for s in spans)
+    assert all(a[2] <= b[1] for a, b in zip(spans, spans[1:]))
+    assert moved["baseline.predicts"] == 1
+    assert moved["baseline.h2d_bytes"] == BASELINE_H2D == 221356
+    assert moved["baseline.d2h_bytes"] == BASELINE_D2H
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -249,3 +290,22 @@ def test_a_capture_is_counted_and_spanned_on_the_card(cuda_device, tmp_path):
     again = counters.since(before)
     assert "dvmvs.graph.capture" not in {s[0] for s in spans} and "graph.captures" not in again
     assert again[LAUNCHES[0]] == 1 and LAUNCHES[1] not in first
+
+
+@pytest.mark.cuda
+def test_a_baseline_capture_holds_no_baseline_span_on_the_card(cuda_device, tmp_path):
+    """DELTAS's first graphed predict captures its step (``dvmvs.graph.
+    capture``) with no ``dvmvs.baseline.*`` span inside it; the second
+    replays; each counts one predict and its bytes."""
+    est = SmallDeltas(device=cuda_device, seed=1, graphs=True)
+    for captured in (True, False):
+        before = counters.snapshot()
+        _, spans = ranges(lambda: baseline_line(est, tmp_path), tmp_path, "cuda")
+        moved = counters.since(before)
+        captures = [s for s in spans if s[0] == "dvmvs.graph.capture"]
+        assert len(captures) == int(captured)
+        assert not any(c[1] <= s[1] < c[2] for c in captures for s in spans
+                       if s[0].startswith("dvmvs.baseline."))
+        assert [s[0] for s in spans if s[0] != "dvmvs.graph.capture"] == BASELINE_SPANS
+        assert (moved["baseline.predicts"], moved["baseline.h2d_bytes"],
+                moved["baseline.d2h_bytes"]) == (1, BASELINE_H2D, BASELINE_D2H)
